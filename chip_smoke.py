@@ -10,25 +10,38 @@ Phases — each one passes or raises, and any failure exits non-zero:
 2. the sweep kernel vs its plain torch version on the card, byte for byte:
    the K=15 shape (a 2^29-cell plane prefilled with random values, 2^24
    sorted int32 codes with runs far above 255, sentinels and the -1 /
-   int32-max bands), then an int64 batch on a plane of more than 2^31 cells
-   with codes above 2^31; median kernel and plain times at the K=15 shape;
+   int32-max bands) and the K=17 shape (a 2^33-cell plane, 2^24 sorted int64
+   codes, most above 2^31); median kernel and plain times at both shapes;
 3. oracle: a small FASTA (Ns, several records, an empty one) indexed at K=11
    through ``python -m pykmer_tpu_torch index`` gives the `.kin` and stats of
    ``pykmer_tpu.oracle`` (numpy);
 4. the slice at real size: a seeded 256 Mbp genome with repeat families,
-   indexed at K=15 through the CLI entry point with verify on; the kernel's
-   launch count equals the chunk count, and a re-run of the same chunks with
-   the plain sweep gives the same `.kin` byte for byte;
+   indexed at K=15 through the CLI entry point with verify on (the streaming
+   pipeline); the kernel's launch count equals the count of chunks the
+   pipeline frames, and a replay of the same chunks with the plain sweep
+   gives the same `.kin` byte for byte; a gzip -1 copy of the genome (the
+   pipelined path that reads the input whole) and the host strategy give the
+   same `.kin` sha256;
 5. where the time goes: one chunk's steps timed with CUDA events, then a
    second index run of the genome under ``torch.profiler``, whose device
    activity (kernels and copies, overlaps merged) gives the busy and idle
    shares of its wall time;
-6. a JSON line of the kernels, then the last line
+6. K=17 (an 8 GiB folded plane on the card, int64 codes): phase 3's small
+   FASTA through the CLI, every nonzero cell of its 16 GiB `.kin` equal to
+   the sparse numpy oracle's counts and no other cell nonzero; then the
+   genome through the CLI with verify on, with its stage table, bp/s and peak
+   device memory; the int64 launches equal the chunk count, and a replay of
+   the same chunks gives a kernel plane equal to the plain-sweep plane
+   (``torch.equal`` on the card) whose stats are the `.kin`'s. Each 16 GiB
+   `.kin` is removed as soon as it is checked;
+7. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable or outside
 a checkout of the repository. It never imports jax. Scratch files go under
-``build/smoke`` (git-ignored) and are removed at the end.
+``build/smoke`` (git-ignored) and are removed at the end. It needs about
+35 GiB of free disk there (two 1 GiB K=15 files, one 16 GiB K=17 file at a
+time) and 40 GiB of host memory.
 """
 
 import contextlib
@@ -45,10 +58,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 K15_CELLS = 1 << 29  # folded plane at K=15
 K15_CODES = 1 << 24  # codes per chunk at K=15 on CUDA
-BIG_CELLS = (1 << 32) + 17  # > 2^31 cells: int64 indexing
-BIG_CODES = 1 << 22
+K17_CELLS = 1 << 33  # folded plane at K=17: int64 codes and indexing
+K17_CODES = 1 << 24  # codes per chunk at K=17 on CUDA
 GENOME_BP = 256_000_000
 SLICE_K = 15
+BIG_K = 17
 ORACLE_K = 11
 H100_SXM_BYTES_PER_S = 3.35e12  # published HBM3 bandwidth of the H100 SXM
 PROFILE_TOP = 8  # device items listed by the profiled run
@@ -107,68 +121,67 @@ def sorted_batch(rng, cells, m, hot_cells, dtype):
     return np.sort(codes).astype(dtype)
 
 
-def phase_kernels(dev):
-    """Kernel vs plain at the K=15 shape (int32) and on a >2^31 plane (int64)."""
-    import numpy as np
+def kernel_vs_plain(dev, cells, codes, hot, label):
+    """The kernel and the plain sweep on two copies of one random plane;
+    returns (max abs err, min kernel ms, min plain ms), each time the median
+    of one round, rounds alternating plain, kernel, kernel, plain."""
     import torch
 
     from pykmer_tpu_torch.ops import sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
 
-    rng = np.random.default_rng(SEED)
-    plane0 = torch.from_numpy(rng.integers(0, 256, size=K15_CELLS, dtype=np.uint8)).to(dev)
-    hot = rng.integers(0, K15_CELLS, size=64)
-    plane0[torch.from_numpy(hot[:16]).to(dev)] = 250  # hot runs on near-full cells
-    codes = torch.from_numpy(sorted_batch(rng, K15_CELLS, K15_CODES, hot, np.int32)).to(dev)
-    a, b = plane0.clone(), plane0.clone()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randint(0, 256, (cells,), dtype=torch.uint8, device=dev, generator=g)
+    hot = torch.from_numpy(hot).to(dev)
+    a[hot[:16]] = 250  # hot runs on near-full cells
+    b = a.clone()
     sweep.accumulate_sorted(a, codes)
     torch.cuda.synchronize()
     saturating_accumulate_sorted(b, codes)
     torch.cuda.synchronize()
-    err32 = max_abs_err(a, b)
-    if err32 or not bool((a[torch.from_numpy(hot).to(dev)] == 255).all()):
-        raise AssertionError(f"int32 K=15 shape: kernel != plain (max abs err {err32})")
-    log(f"kernel vs plain, int32, {K15_CELLS} cells, {K15_CODES} codes: equal")
-    # alternate plain / kernel / kernel / plain on scratch copies
+    err = max_abs_err(a, b)
+    if err or not bool((a[hot] == 255).all()):
+        raise AssertionError(f"{label}: kernel != plain (max abs err {err})")
+    log(f"kernel vs plain, {label}, {cells} cells, {codes.numel()} codes: equal")
+    # timed on the (now saturated) copies: the same cells, the same traffic
     t_plain = [median_ms(lambda: saturating_accumulate_sorted(b, codes), 10)]
     t_kernel = [median_ms(lambda: sweep.accumulate_sorted(a, codes), 20)]
     t_kernel.append(median_ms(lambda: sweep.accumulate_sorted(a, codes), 20))
     t_plain.append(median_ms(lambda: saturating_accumulate_sorted(b, codes), 10))
-    log(f"sweep time at the K=15 shape (median ms): kernel {t_kernel} "
-        f"plain {t_plain}")
+    log(f"sweep time, {label} (median ms): kernel {t_kernel} plain {t_plain}")
     # the kernel's memory floor: the codes once, plus one 32-byte sector read
     # and one written back per distinct in-range code
-    distinct = int(torch.unique_consecutive(
-        codes[(codes >= 0) & (codes < K15_CELLS)]).numel())
+    distinct = int(torch.unique_consecutive(codes[(codes >= 0) & (codes < cells)]).numel())
     moved = codes.numel() * codes.element_size() + distinct * 2 * 32
     floor_ms = moved / H100_SXM_BYTES_PER_S * 1e3
-    log(f"sweep memory floor: {distinct} distinct in-range codes, {moved} bytes "
-        f"-> {floor_ms:.4f} ms at {H100_SXM_BYTES_PER_S / 1e12} TB/s "
+    log(f"sweep memory floor, {label}: {distinct} distinct in-range codes, {moved} "
+        f"bytes -> {floor_ms:.4f} ms at {H100_SXM_BYTES_PER_S / 1e12} TB/s "
         f"(published HBM3 bandwidth); kernel at {floor_ms / min(t_kernel):.3f} of it")
-    del a, b, plane0, codes
+    del a, b
     torch.cuda.empty_cache()
+    return err, min(t_kernel), min(t_plain)
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    big0 = torch.randint(0, 256, (BIG_CELLS,), dtype=torch.uint8, device=dev, generator=g)
-    hot = rng.integers(1 << 31, BIG_CELLS, size=16)
-    codes = sorted_batch(rng, BIG_CELLS, BIG_CODES, hot, np.int64)
+
+def phase_kernels(dev):
+    """Kernel vs plain at the K=15 shape (int32) and the K=17 shape (int64)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    hot = rng.integers(0, K15_CELLS, size=64)
+    codes = torch.from_numpy(sorted_batch(rng, K15_CELLS, K15_CODES, hot, np.int32)).to(dev)
+    k15 = kernel_vs_plain(dev, K15_CELLS, codes, hot, "int32 at the K=15 shape")
+
+    hot = rng.integers(1 << 31, K17_CELLS, size=64)
+    codes = sorted_batch(rng, K17_CELLS, K17_CODES, hot, np.int64)
     codes[-10:] = 1 << 40
     codes = torch.from_numpy(codes).to(dev)
-    if not bool((codes >= (1 << 31)).sum() > BIG_CODES // 4):
+    if not bool((codes >= (1 << 31)).sum() > K17_CODES // 2):
         raise AssertionError("int64 batch holds too few codes above 2^31")
-    a, b = big0.clone(), big0.clone()
-    del big0
-    sweep.accumulate_sorted(a, codes)
-    torch.cuda.synchronize()
-    saturating_accumulate_sorted(b, codes)
-    torch.cuda.synchronize()
-    err64 = max_abs_err(a, b)
-    if err64 or not bool((a[torch.from_numpy(hot).to(dev)] == 255).all()):
-        raise AssertionError(f"int64 >2^31 plane: kernel != plain (max abs err {err64})")
-    log(f"kernel vs plain, int64, {BIG_CELLS} cells, {BIG_CODES} codes: equal")
-    del a, b, codes
+    k17 = kernel_vs_plain(dev, K17_CELLS, codes, hot, "int64 at the K=17 shape")
+    del codes
     torch.cuda.empty_cache()
-    return max(err32, err64), min(t_kernel), min(t_plain)
+    return k15, k17
 
 
 def write_small_fasta(path, rng):
@@ -189,6 +202,46 @@ def write_small_fasta(path, rng):
         fh.write("".join(out))
 
 
+def cli_subprocess(args):
+    """``python -m pykmer_tpu_torch <args>`` from the checkout; returns its
+    wall time in seconds."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pykmer_tpu_torch", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"port CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process with the stage table on; returns
+    (wall seconds, the stage table)."""
+    from pykmer_tpu_torch import cli
+
+    os.environ["PYKMER_TPU_STAGE_TIMING"] = "1"
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        os.environ.pop("PYKMER_TPU_STAGE_TIMING")
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv)} exited {rc}\n{err.getvalue()[-4000:]}")
+    return wall, err.getvalue().rstrip()
+
+
+def take_outputs(kin):
+    """The `.kin.json` of ``kin``; both files are removed."""
+    with open(kin + ".json") as fh:
+        meta = json.load(fh)
+    os.remove(kin)
+    os.remove(kin + ".json")
+    return meta
+
+
 def phase_oracle(work, dev):
     import numpy as np
 
@@ -196,44 +249,68 @@ def phase_oracle(work, dev):
 
     fa = os.path.join(work, "small.fa")
     write_small_fasta(fa, np.random.default_rng(SEED))
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run(
-        [sys.executable, "-m", "pykmer_tpu_torch", "index", fa, "small",
-         str(ORACLE_K), "--device", str(dev), "--quiet"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"port CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    kin = fa + f".{ORACLE_K}.kin"
-    meta = kin + ".json"
+    cli_subprocess(["index", fa, "small", str(ORACLE_K), "--device", str(dev), "--quiet"])
+    kin = fa + f".{ORACLE_K:02d}.kin"
     port_kin = open(kin, "rb").read()
-    port_meta = json.load(open(meta))
-    os.remove(kin)
-    os.remove(meta)
+    port_meta = take_outputs(kin)
     oracle_write_index(fa, fa, ORACLE_K)
     if open(kin, "rb").read() != port_kin:
         raise AssertionError(f"K={ORACLE_K} .kin differs from the numpy oracle's")
-    oracle_meta = json.load(open(meta))
+    oracle_meta = take_outputs(kin)
     for key in ("num_kmers", "hist", "vals_sum", "chromosomes"):
         if port_meta[key] != oracle_meta[key]:
             raise AssertionError(f"K={ORACLE_K} .kin.json {key} differs from the oracle's")
     log(f"oracle K={ORACLE_K}: .kin identical, num_kmers {port_meta['num_kmers']}, "
         f"{len(port_meta['chromosomes'])} chromosomes")
+    return fa
+
+
+def pipelined_chunks(genome, k, cw):
+    """The chunks the index of ``genome`` runs, in order: the pipelined
+    producer over the file's bytes finds the streaming run's segment bounds.
+    Returns (chunks, total bp)."""
+    from pykmer_tpu.io.fasta import open_input_bytes
+    from pykmer_tpu_torch.host.pipeline import iter_pipelined_chunks
+
+    sink = {}
+    chunks = list(iter_pipelined_chunks(open_input_bytes(genome), k, cw, sink))
+    return chunks, sink["total_bp"]
+
+
+def replay(chunks, k, cw, dev, sweeps):
+    """Step A of every chunk on the card; each sorted batch goes through each
+    of ``sweeps`` into its own plane. Returns (planes, number of k-mers)."""
+    import torch
+
+    from pykmer_tpu_torch.index.indexer import chunk_sorted_codes
+
+    span = cw + k - 1
+    planes = [torch.zeros(4**k // 2, dtype=torch.uint8, device=dev) for _ in sweeps]
+    nk = 0
+    for b, m in chunks:
+        codes, nvalid = chunk_sorted_codes(
+            torch.from_numpy(b).to(dev),
+            None if m is None else torch.from_numpy(m).to(dev), k, span)
+        for plane, sweep_fn in zip(planes, sweeps):
+            sweep_fn(plane, codes)
+        nk += int(nvalid)
+    return planes, nk
+
+
+def chunk_windows_for(genome, k, dev):
+    from pykmer_tpu.config import IndexConfig
+    from pykmer_tpu_torch.config import resolve_chunk_windows
+
+    return resolve_chunk_windows(IndexConfig(kmer_len=k), dev,
+                                 os.path.getsize(genome)).chunk_windows
 
 
 def phase_slice(work, dev):
-    """The genome at SLICE_K through the CLI entry; launch count; plain re-run."""
+    """The genome at SLICE_K through the CLI entry; launch count; plain replay."""
     import numpy as np
-    import torch
 
     import bench
-    from pykmer_tpu.config import IndexConfig
-    from pykmer_tpu.io.fasta import open_input_bytes
-    from pykmer_tpu_torch import cli
-    from pykmer_tpu_torch.config import resolve_chunk_windows
-    from pykmer_tpu_torch.host.chunks import chunk_stream, iter_chunks_packed_lazy
-    from pykmer_tpu_torch.host.decode import decode_joined_bytes
-    from pykmer_tpu_torch.index.indexer import chunk_sorted_codes
+    from pykmer_tpu.utils.checksum import sha256_file
     from pykmer_tpu_torch.ops import sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
     from pykmer_tpu_torch.ops.readback import unfold_canonical
@@ -243,60 +320,74 @@ def phase_slice(work, dev):
     t0 = time.perf_counter()
     bench.make_genome(genome, GENOME_BP, seed=SEED, repeats=True)
     log(f"genome: {GENOME_BP} bp written in {time.perf_counter() - t0:.1f} s (set-up)")
+    cw = chunk_windows_for(genome, k, dev)
+    chunks, total_bp = pipelined_chunks(genome, k, cw)
 
-    cw = resolve_chunk_windows(IndexConfig(kmer_len=k), dev,
-                               os.path.getsize(genome)).chunk_windows
-    stream, _, total_bp = decode_joined_bytes(open_input_bytes(genome), k,
-                                              tail_headroom=cw + k)
-    padded, n_chunks = chunk_stream(stream, k, cw)
-
-    os.environ["PYKMER_TPU_STAGE_TIMING"] = "1"
-    err = io.StringIO()
     sweep.LAUNCHES = 0
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        rc = cli.main(["index", genome, "s", str(k), "--device", str(dev)])
-    wall = time.perf_counter() - t0
+    wall, table = run_cli(["index", genome, "s", str(k), "--device", str(dev)])
     launches = sweep.LAUNCHES
-    os.environ.pop("PYKMER_TPU_STAGE_TIMING")
-    log(err.getvalue().rstrip())
-    if rc != 0:
-        raise RuntimeError(f"index exited {rc}")
+    log(table)
     log(f"index K={k}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
-        f"(verify on), {n_chunks} chunks of {cw} windows, {launches} sweep launches")
-    if launches != n_chunks:
-        raise AssertionError(f"sweep launched {launches} times for {n_chunks} chunks")
+        f"(verify on, streaming input), {len(chunks)} chunks of {cw} windows, "
+        f"{launches} sweep launches")
+    if launches != len(chunks):
+        raise AssertionError(f"sweep launched {launches} times for {len(chunks)} chunks")
 
-    # the same chunks through step A + the PLAIN sweep
-    plane = torch.zeros(4**k // 2, dtype=torch.uint8, device=dev)
-    nk = n_all_valid = 0
-    span = cw + k - 1
-    for b, m in iter_chunks_packed_lazy(padded, k, cw, n_chunks):
-        n_all_valid += m is None
-        codes, nvalid = chunk_sorted_codes(
-            torch.from_numpy(b).to(dev),
-            None if m is None else torch.from_numpy(m).to(dev), k, span)
-        saturating_accumulate_sorted(plane, codes)
-        nk += int(nvalid)
+    (plane,), nk = replay(chunks, k, cw, dev, [saturating_accumulate_sorted])
     want = unfold_canonical(plane.cpu().numpy(), k)
-    got = np.fromfile(genome + f".{k}.kin", dtype=np.uint8)
-    if not np.array_equal(got, want):
-        raise AssertionError(f"K={k} .kin differs from the plain-sweep re-run")
-    meta = json.load(open(genome + f".{k}.kin.json"))
+    del plane
+    kin = genome + f".{k:02d}.kin"
+    if not np.array_equal(np.fromfile(kin, dtype=np.uint8), want):
+        raise AssertionError(f"K={k} .kin differs from the plain-sweep replay")
+    del want
+    meta = json.load(open(kin + ".json"))
     if meta["num_kmers"] != nk:
-        raise AssertionError(f"num_kmers {meta['num_kmers']} != plain re-run {nk}")
+        raise AssertionError(f"num_kmers {meta['num_kmers']} != plain replay {nk}")
     if meta["vals_max"] != 255:
         raise AssertionError("the repeat families did not saturate any cell")
-    log(f"plain re-run: .kin identical, num_kmers {nk}, vals_max 255; "
-        f"{n_all_valid} of {n_chunks} chunks all-valid")
-    return launches, genome, padded, n_chunks, cw, total_bp
+    sha = meta["output_file_cheksum"]
+    if sha256_file(kin) != sha:
+        raise AssertionError("the recorded output sha256 is not the file's")
+    n_all_valid = sum(m is None for _, m in chunks)
+    log(f"plain replay: .kin identical, num_kmers {nk}, vals_max 255, output "
+        f"sha256 {sha} (the file's); {n_all_valid} of {len(chunks)} chunks all-valid")
+    return launches, genome, chunks, cw, total_bp, sha
 
 
-def chunk_step_times(dev, padded, n_chunks, cw):
-    """Median device ms (CUDA events) of each step of the first chunk."""
+def phase_k15_variants(work, dev, genome, total_bp, want_sha):
+    """A gzip -1 copy of the genome (read whole, then pipelined) and the host
+    strategy give the streaming run's `.kin` sha256."""
+    import gzip
+
+    from pykmer_tpu_torch.ops import sweep
+
+    k = SLICE_K
+    gz = os.path.join(work, "genome_gz1.fa.gz")
+    t0 = time.perf_counter()
+    with open(genome, "rb") as src, gzip.open(gz, "wb", compresslevel=1) as dst:
+        shutil.copyfileobj(src, dst, 16 << 20)
+    log(f"gzip -1 copy: {os.path.getsize(gz)} bytes in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    for path, extra, label in ((gz, [], "gzip -1 input"),
+                               (genome, ["--accumulate", "host"], "host strategy")):
+        sweep.LAUNCHES = 0
+        wall, table = run_cli(["index", path, "s", str(k), "--device", str(dev), *extra])
+        meta = take_outputs(path + f".{k:02d}.kin")
+        log(table)
+        log(f"index K={k}, {label}: {total_bp} bp in {wall:.3f} s = "
+            f"{total_bp / wall:.0f} bp/s (verify on), {sweep.LAUNCHES} sweep launches, "
+            f"output sha256 {meta['output_file_cheksum']}")
+        if meta["output_file_cheksum"] != want_sha:
+            raise AssertionError(f"K={k} {label}: .kin sha256 differs from the streaming run's")
+        if (sweep.LAUNCHES == 0) != (label == "host strategy"):
+            raise AssertionError(f"K={k} {label}: {sweep.LAUNCHES} sweep launches")
+    os.remove(gz)
+
+
+def chunk_step_times(dev, chunk, cw):
+    """Median device ms (CUDA events) of each step of one chunk."""
     import torch
 
-    from pykmer_tpu_torch.host.chunks import iter_chunks_packed_lazy
     from pykmer_tpu_torch.index.indexer import chunk_sorted_codes
     from pykmer_tpu_torch.ops import sweep
     from pykmer_tpu_torch.ops.encode import (
@@ -305,7 +396,7 @@ def chunk_step_times(dev, padded, n_chunks, cw):
 
     k = SLICE_K
     span = cw + k - 1
-    b, m = next(iter(iter_chunks_packed_lazy(padded, k, cw, n_chunks)))
+    b, m = chunk
 
     def upload():
         return (torch.from_numpy(b).to(dev),
@@ -323,7 +414,7 @@ def chunk_step_times(dev, padded, n_chunks, cw):
     plane = torch.zeros(4**k // 2, dtype=torch.uint8, device=dev)
     times = {
         "chunk": "all-valid" if m is None else "masked",
-        "h2d_ms": median_ms(upload, 10),
+        "h2d_pageable_ms": median_ms(upload, 10),
         "encode_ms": median_ms(encode, 10),
         "sort_ms": median_ms(lambda: sort_codes_fast(codes), 10),
         "stepA_ms": median_ms(lambda: chunk_sorted_codes(db, dm, k, span), 10),
@@ -332,6 +423,99 @@ def chunk_step_times(dev, padded, n_chunks, cw):
     log("one chunk, median device ms: " + json.dumps(times))
     del plane, codes, sorted_codes, db, dm
     torch.cuda.empty_cache()
+
+
+def phase_k17_oracle(work, dev, fa):
+    """Phase 3's small FASTA at K=17 through the CLI: the `.kin`'s nonzero
+    cells are exactly the numpy oracle's canonical codes, clipped counts."""
+    import numpy as np
+
+    from pykmer_tpu.formats.kin import iter_kin_blocks
+    from pykmer_tpu.io.fasta import read_fasta_codes
+    from pykmer_tpu.oracle.gold import oracle_canonical_codes
+
+    k = BIG_K
+    wall = cli_subprocess(["index", fa, "small", str(k), "--device", str(dev), "--quiet"])
+    codes = np.concatenate([oracle_canonical_codes(r.codes, k)
+                            for r in read_fasta_codes(fa)])
+    want_idx, counts = np.unique(codes, return_counts=True)
+    want_val = np.minimum(counts, 255)
+    kin = fa + f".{k:02d}.kin"
+    idx, val, off = [], [], 0
+    for block in iter_kin_blocks(kin, 4**k, 1 << 30, reuse_buffer=True):
+        nz = np.flatnonzero(block)
+        idx.append(nz + off)
+        val.append(block[nz])
+        off += block.shape[0]
+    meta = take_outputs(kin)
+    idx, val = np.concatenate(idx), np.concatenate(val)
+    if not (np.array_equal(idx, want_idx) and np.array_equal(val, want_val)):
+        raise AssertionError(f"K={k} .kin nonzero cells differ from the numpy oracle's")
+    if meta["num_kmers"] != codes.shape[0]:
+        raise AssertionError(f"K={k} num_kmers {meta['num_kmers']} != oracle {codes.shape[0]}")
+    log(f"oracle K={k}: the {off}-byte .kin holds exactly the oracle's {idx.shape[0]} "
+        f"nonzero cells (num_kmers {codes.shape[0]}); CLI run {wall:.1f} s")
+
+
+def device_counts256(plane):
+    """256-bin histogram of a uint8 plane, on its device."""
+    import torch
+
+    counts = torch.zeros(256, dtype=torch.int64, device=plane.device)
+    step = 1 << 28
+    for lo in range(0, plane.shape[0], step):
+        counts += torch.bincount(plane[lo : lo + step].to(torch.int32), minlength=256)
+    return counts.cpu().numpy()
+
+
+def phase_k17(work, dev, genome):
+    """The genome at K=17 through the CLI with verify on; int64 launches ==
+    chunks; replay: kernel plane == plain plane, with the `.kin`'s stats."""
+    import torch
+
+    from pykmer_tpu.formats.header import stats_from_counts256
+    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
+
+    k = BIG_K
+    cw = chunk_windows_for(genome, k, dev)
+    chunks, total_bp = pipelined_chunks(genome, k, cw)
+    log(f"disk free before K={k}: {shutil.disk_usage(work).free} bytes")
+    sweep.LAUNCHES = 0
+    sweep.LAUNCHES_I64 = 0
+    wall, table = run_cli(["index", genome, "s", str(k), "--device", str(dev)])
+    launches, launches_i64 = sweep.LAUNCHES, sweep.LAUNCHES_I64
+    # create_fasta_index resets the peak at its start
+    peak = torch.cuda.max_memory_allocated(dev)
+    meta = take_outputs(genome + f".{k:02d}.kin")
+    log(table)
+    log(f"index K={k}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
+        f"(verify on, streaming input), peak device memory {peak} bytes, "
+        f"{len(chunks)} chunks of {cw} windows, {launches_i64} int64 sweep launches")
+    if launches_i64 != len(chunks) or launches != launches_i64:
+        raise AssertionError(f"K={k}: {launches_i64} int64 launches ({launches} in all) "
+                             f"for {len(chunks)} chunks")
+
+    torch.cuda.empty_cache()
+    (kern, plain), nk = replay(chunks, k, cw, dev,
+                               [sweep.accumulate_sorted, saturating_accumulate_sorted])
+    torch.cuda.synchronize()
+    if not torch.equal(kern, plain):
+        raise AssertionError(f"K={k}: the kernel plane differs from the plain-sweep plane")
+    err = max_abs_err(kern, plain)
+    counts = device_counts256(kern)
+    del kern, plain
+    torch.cuda.empty_cache()
+    counts[0] += 4**k // 2  # each folded cell's structural-zero partner
+    stats = stats_from_counts256(counts)
+    for key, val in stats.items():
+        if meta[key] != val:
+            raise AssertionError(f"K={k}: .kin.json {key} differs from the replay plane's")
+    if meta["num_kmers"] != nk:
+        raise AssertionError(f"K={k}: num_kmers {meta['num_kmers']} != replay {nk}")
+    log(f"replay K={k}: kernel plane == plain plane ({4**k // 2} cells, torch.equal), "
+        f"its stats and num_kmers {nk} are the .kin's, vals_max {meta['vals_max']}")
+    return launches_i64, err
 
 
 def merged_us(intervals):
@@ -422,25 +606,35 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        err, ms, plain_ms = phase_kernels(dev)
-        phase_oracle(work, dev)
-        launches, genome, padded, n_chunks, cw, total_bp = phase_slice(work, dev)
-        chunk_step_times(dev, padded, n_chunks, cw)
-        del padded
+        k15_sweep, k17_sweep = phase_kernels(dev)
+        small_fa = phase_oracle(work, dev)
+        launches, genome, chunks, cw, total_bp, sha = phase_slice(work, dev)
+        phase_k15_variants(work, dev, genome, total_bp, sha)
+        chunk_step_times(dev, chunks[len(chunks) // 2], cw)
+        del chunks
         profiled_run(dev, genome, total_bp)
+        take_outputs(genome + f".{SLICE_K:02d}.kin")  # room for the 16 GiB files
+        phase_k17_oracle(work, dev, small_fa)
+        launches_i64, replay_err = phase_k17(work, dev, genome)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "sweep_sorted",
-        "route": "cuda",
-        "source": "pykmer_tpu_torch/csrc/sweep.cu",
-        "replaces": "pykmer_tpu/ops/pallas_hist.py:259",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    kernels = []
+    for name, n, (err, ms, plain_ms) in (
+            ("sweep_sorted", launches, k15_sweep),
+            ("sweep_sorted_i64", launches_i64,
+             (max(k17_sweep[0], replay_err), k17_sweep[1], k17_sweep[2]))):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pykmer_tpu_torch/csrc/sweep.cu",
+            "replaces": "pykmer_tpu/ops/pallas_hist.py:259",
+            "launches": n,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,14 @@ pykmer_tpu's JAX-free modules (``formats``, ``io``, ``utils``, ``config``,
 
 Layout
 ------
-- ``config``  : chunk-size defaults per device
-- ``host``    : numpy FASTA decode + chunk framing / 2-bit packing
+- ``config``  : chunk-size defaults and the accumulate strategy per device
+- ``host``    : numpy FASTA decode, record-aligned segments, the streaming
+                reader, the pipelined chunk producer, chunk framing / 2-bit
+                packing
 - ``ops``     : device programs — encode, sort, the saturating sweep kernel
-                and its plain version, readback
+                and its plain version, the chased readback tail
 - ``state``   : folded-plane exchange with numpy (and the JAX package)
-- ``index``   : the single-GPU indexer
+- ``index``   : the single-GPU indexer, batch indexing, index verification
 - ``csrc``    : CUDA C++ kernel sources, built at first use
 
 Every public function takes an explicit ``device``; nothing falls back to

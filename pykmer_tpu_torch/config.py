@@ -1,8 +1,9 @@
 """Per-device defaults of the index configuration.
 
 The configuration itself is ``pykmer_tpu.config.IndexConfig`` (JAX-free);
-only :func:`resolve_chunk_windows` is device-specific, and the JAX package's
-version asks jax for its backend, so the port has its own.
+:func:`resolve_chunk_windows` and :func:`resolve_strategy` are
+device-specific, and the JAX package's versions ask jax for its backend, so
+the port has its own.
 """
 
 from __future__ import annotations
@@ -18,6 +19,42 @@ from pykmer_tpu.config import IndexConfig
 # and the host→device copy on the GPU; the CPU (tests) keeps them small
 CUDA_CHUNK_WINDOWS = 1 << 24
 CPU_CHUNK_WINDOWS = 1 << 22
+
+
+# a generous bound on step A's transient device bytes per window (the
+# unpacked bases, the int64 encode temporaries, the fold, the sort's values,
+# indices and scratch)
+STEP_A_BYTES_PER_WINDOW = 128
+# the JAX package's rule off the card: the dense plane lives on the device
+# while 4^K fits in 4 GiB
+HOST_DENSE_LIMIT = 4 << 30
+
+
+def resolve_strategy(
+    kmer_len: int,
+    accumulate: str,
+    device_type: str,
+    free_bytes: Optional[int] = None,
+    chunk_windows: int = CUDA_CHUNK_WINDOWS,
+) -> str:
+    """Where the count plane lives: ``"device"`` or ``"host"``.
+
+    An explicit ``accumulate`` ("device" / "host") is honoured. For "auto" on
+    CUDA the device strategy is taken when the folded plane (4^K / 2 bytes)
+    plus step A's workspace fits ``free_bytes`` (the card's free memory, as
+    ``torch.cuda.mem_get_info`` gives it): K=17's 8 GiB plane on an 80 GB
+    card, not K=19's 128 GiB. Off the card the JAX package's rule holds:
+    ``device`` iff 4^K <= 4 GiB."""
+    if accumulate in ("device", "host"):
+        return accumulate
+    if accumulate != "auto":
+        raise ValueError(f"accumulate must be auto, device or host, got {accumulate!r}")
+    if device_type == "cuda":
+        if free_bytes is None:
+            raise ValueError("the CUDA strategy needs the card's free bytes")
+        need = 4**kmer_len // 2 + STEP_A_BYTES_PER_WINDOW * chunk_windows
+        return "device" if need <= free_bytes else "host"
+    return "device" if 4**kmer_len <= HOST_DENSE_LIMIT else "host"
 
 
 def resolve_chunk_windows(

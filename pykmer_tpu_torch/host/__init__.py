@@ -1,1 +1,3 @@
-"""Host-side (numpy) stages of the index path: FASTA decode and chunk framing."""
+"""Host-side (numpy) stages of the index path: FASTA decode, record-aligned
+segments and the streaming reader, the pipelined chunk producer, chunk
+framing."""

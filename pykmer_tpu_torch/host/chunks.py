@@ -112,6 +112,36 @@ def iter_chunks_packed(
         yield bases[b0 : b0 + b_span], mask[m0 : m0 + m_span]
 
 
+def iter_chunks_prepacked(
+    bases: np.ndarray,
+    mask: np.ndarray,
+    n_codes: int,
+    kmer_len: int,
+    chunk_windows: int,
+):
+    """Yield (bases2, maskbits-or-None) chunks as views of planes that the
+    native packed decode (``pykmer_tpu.io.native
+    .fasta_decode_joined_packed_native``) wrote: invalid-padded past
+    ``n_codes``, with capacity for the final chunk's span. No packing happens
+    here."""
+    if chunk_windows % 8:
+        raise ValueError(f"chunk_windows must be a multiple of 8, got {chunk_windows}")
+    k = kmer_len
+    n_windows = max(n_codes - k + 1, 0)
+    n_chunks = max((n_windows + chunk_windows - 1) // chunk_windows, 1)
+    span = chunk_windows + k - 1
+    b_span = (span + 3) // 4
+    m_span = (span + 7) // 8
+    last = (n_chunks - 1) * chunk_windows
+    if last // 4 + b_span > bases.shape[0] or last // 8 + m_span > mask.shape[0]:
+        raise ValueError("packed planes lack the tail capacity of the last chunk")
+    for c in range(n_chunks):
+        start = c * chunk_windows
+        b = bases[start // 4 : start // 4 + b_span]
+        m = mask[start // 8 : start // 8 + m_span]
+        yield b, (None if mask_all_valid(m, span) else m)
+
+
 def iter_chunks_packed_lazy(
     padded: np.ndarray, kmer_len: int, chunk_windows: int, n_chunks: int
 ):

@@ -1,17 +1,23 @@
 """The single-device index path: FASTA → `.kin` + `.kin.json`.
 
-Port of the device strategy of ``pykmer_tpu/index/indexer.py``. The host
-decodes the whole input into one joined base-code stream, frames it into
-fixed-size overlapping chunks and packs each to 2-bit bases (+ a validity
-bitmap when the chunk holds Ns, separators or padding). Per chunk the device
-runs step A (unpack, canonical encode, fold, keys-only sort, valid-window
-count) and step B (the saturating sweep into the folded uint8 plane, which
-stays on the device for the whole run, as does the k-mer counter). One
-device-to-host copy, the unfold, the write + sha256, the stats and the verify
-pass finish the run. The files are the JAX package's, byte for byte.
+Port of ``create_fasta_index`` (``pykmer_tpu/index/indexer.py``). Per chunk
+the device runs step A (unpack, canonical encode, fold, keys-only sort,
+valid-window count). Two strategies apply the sorted codes:
 
-Not ported yet (see ROADMAP.md): the overlapped streaming input pipeline,
-K >= 17 and the host accumulate strategy.
+- **device**: step B, the saturating sweep kernel, updates the flat folded
+  uint8 plane, which stays on the device for the whole run (K=17's 8 GiB
+  plane fits one 80 GB card);
+- **host**: the sorted codes come back and the host applies the saturating
+  update to a folded plane in host RAM, for planes the card cannot hold.
+
+On the device strategy the input is pipelined: a plain file streams from disk
+while it is hashed, decoded segment by segment and uploaded
+(``host/pipeline.py``); compressed files and stdin are read whole and then
+pipelined. The host strategy decodes the whole input first. Uploads go through
+a ring of pinned staging buffers. The chased readback tail
+(``ops/readback.py``) then copies, unfolds, writes and hashes the plane, and a
+verify pass re-reads the written file's stats. The files are the JAX
+package's, byte for byte.
 """
 
 from __future__ import annotations
@@ -25,19 +31,21 @@ from typing import Iterable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from pykmer_tpu.config import IndexConfig
+from pykmer_tpu.config import MAX_VAL, IndexConfig
 from pykmer_tpu.formats import kin as kinfmt
-from pykmer_tpu.formats.header import KinHeader, fast_counts256
+from pykmer_tpu.formats.header import KinHeader
 from pykmer_tpu.io.direct import DirectWriter
 from pykmer_tpu.io.fasta import open_input_bytes
-from pykmer_tpu.utils.bigmem import big_empty
+from pykmer_tpu.utils.bigmem import big_empty, big_zeros
 from pykmer_tpu.utils.checksum import sha256_file
 from pykmer_tpu.utils.profiling import StageTimer
 
 from .. import resolve_device
-from ..config import resolve_chunk_windows
+from ..config import resolve_chunk_windows, resolve_strategy
 from ..host.chunks import chunk_stream, iter_chunks_packed_lazy
 from ..host.decode import decode_joined_bytes
+from ..host.pipeline import iter_pipelined_chunks
+from ..host.segments import StreamingInput
 from ..ops.encode import (
     canonical_codes,
     fold_codes,
@@ -45,11 +53,22 @@ from ..ops.encode import (
     unpack_base_2bit_mask,
 )
 from ..ops.histogram import sort_codes_fast
-from ..ops.readback import fetch_plane, unfold_canonical, write_and_hash
+from ..ops.readback import stream_plane_to_out
 from ..ops.sweep import accumulate_sorted
 
 PRINT_EVERY = 25_000_000  # progress cadence in bp (as the JAX package)
-MAX_KMER_LEN = 15  # the folded plane of K <= 15 indexes in int32
+# folded planes up to this many cells sort int32 codes, larger ones int64
+# (a test lowers it to drive the int64 path at small K)
+MAX_INT32_SORT_CELLS = np.iinfo(np.int32).max
+STAGING_SLOTS = 3  # pinned host buffers the uploads rotate through
+
+
+def _have_native() -> bool:
+    try:
+        import pykmer_tpu.io.native  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 def create_fasta_index(
@@ -99,41 +118,68 @@ def create_fasta_index(
         )
     kinfmt.remove_outputs(name_stem, kmer_len, overwrite)
 
+    free = None
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        free = torch.cuda.mem_get_info(device)[0]
+    strategy = resolve_strategy(kmer_len, config.accumulate, device.type, free,
+                                config.chunk_windows)
+    have_native = _have_native()
+    plain = input_file is not None and not input_file.endswith((".gz", ".bgz"))
+    streaming = (strategy == "device" and have_native and plain
+                 and os.path.getsize(input_file) > 0)
+
     stages = StageTimer()
     timer = header.timer
-    with stages.stage("input read"):
-        data = open_input_bytes(input_file)
-    plain = input_file is not None and not input_file.endswith((".gz", ".bgz"))
-
-    def hash_input() -> str:
-        # plain files and stdin hash the bytes already in memory; a
-        # compressed input hashes its file
-        if plain or from_stdin:
-            return hashlib.sha256(data).hexdigest()
-        return sha256_file(header.input_file_path)
-
+    cw = config.chunk_windows
     tmp = header.index_tmp_file
-    # the input checksum overlaps the device work (hashlib releases the GIL)
-    with ThreadPoolExecutor(1) as pool:
-        input_ck = pool.submit(hash_input)
-        with stages.stage("fasta decode + join"):
-            stream, chromosomes, total_bp = decode_joined_bytes(
-                data, kmer_len, tail_headroom=config.chunk_windows + kmer_len
-            )
-        if stream.shape[0] < kmer_len:
-            raise ValueError(f"{input_file}: no valid k-mers at K={kmer_len}")
-        with stages.stage("chunk framing"):
-            padded, n_chunks = chunk_stream(stream, kmer_len, config.chunk_windows)
-        with stages.stage("device accumulate"):
-            plane, num_kmers = accumulate_device(
-                iter_chunks_packed_lazy(
-                    padded, kmer_len, config.chunk_windows, n_chunks
-                ),
-                kmer_len, config.chunk_windows, device,
-            )
-        del padded, stream
+    with ThreadPoolExecutor(1) as hash_pool:
+        if streaming:
+            # the reader and input-hash threads start here; decode and
+            # uploads chase them
+            with stages.stage("input read"):
+                data = StreamingInput(input_file)
+            input_ck = None
+            pipelined = True
+        else:
+            with stages.stage("input read"):
+                data = open_input_bytes(input_file)
+            # plain files and stdin hash the bytes already in memory; a
+            # compressed input hashes its file. Either overlaps the device
+            # work (hashlib releases the GIL).
+            input_ck = hash_pool.submit(_sha256_hex, data) if plain or from_stdin \
+                else hash_pool.submit(sha256_file, header.input_file_path)
+            pipelined = strategy == "device" and have_native and len(data) > 0
+
+        if pipelined:
+            sink: dict = {}
+            with stages.stage("decode + accumulate (pipelined)"):
+                plane, num_kmers = accumulate_device(
+                    iter_pipelined_chunks(data, kmer_len, cw, sink), kmer_len, cw, device)
+            chromosomes, total_bp = sink["chromosomes"], sink["total_bp"]
+        else:
+            with stages.stage("fasta decode + join"):
+                stream, chromosomes, total_bp = decode_joined_bytes(
+                    data, kmer_len, tail_headroom=cw + kmer_len)
+            if stream.shape[0] < kmer_len:
+                raise ValueError(f"{input_file}: no valid k-mers at K={kmer_len}")
+            with stages.stage("chunk framing"):
+                padded, n_chunks = chunk_stream(stream, kmer_len, cw)
+            chunks = iter_chunks_packed_lazy(padded, kmer_len, cw, n_chunks)
+            with stages.stage(f"{strategy} accumulate"):
+                accumulate = accumulate_device if strategy == "device" else accumulate_host
+                plane, num_kmers = accumulate(chunks, kmer_len, cw, device)
+            # every chunk is consumed: release the code stream's pooled
+            # block before the output plane allocates
+            del chunks, padded, stream
         if num_kmers == 0:
             raise ValueError(f"{input_file}: no valid k-mers at K={kmer_len}")
+        if streaming:
+            # all input is consumed and the hash trails the finished read:
+            # take the checksum now and release the input block to the pool
+            # before the output plane allocates
+            input_hex = data.input_checksum()
+        del data
         if verbose:
             print(f"  records {len(chromosomes):7,d} bp {total_bp:15,d}")
         if total_bp >= PRINT_EVERY:
@@ -141,27 +187,22 @@ def create_fasta_index(
         header.num_kmers = int(num_kmers)
         header.chromosomes = chromosomes
 
-        with stages.stage("fetch + unfold + write"):
-            folded = fetch_plane(plane)
-            del plane
-            # each folded cell adds its value plus exactly one structural
-            # zero (its non-canonical partner) to the full plane's histogram
-            counts = fast_counts256(folded).copy()
-            counts[0] += data_size // 2
+        with stages.stage("output alloc"):
             out = big_empty(data_size)
-            unfold_canonical(folded, kmer_len, out=out)
-            del folded
-            with DirectWriter(tmp, size=data_size) as fd:
-                output_ck = write_and_hash(fd, out)
-            del out
+        with DirectWriter(tmp, size=data_size) as fd:
+            counts, output_ck = stream_plane_to_out(plane, kmer_len, out, fd,
+                                                    stages=stages)
+        del plane, out
+        # each folded cell adds its value plus exactly one structural zero
+        # (its non-canonical partner) to the full plane's histogram
+        counts[0] += data_size // 2
         with stages.stage("metadata"):
             header.write_metadata(
                 tmp,
                 stats_counts256=counts,
-                input_checksum=input_ck.result(),
+                input_checksum=input_hex if streaming else input_ck.result(),
                 output_checksum=output_ck,
             )
-    del data
 
     if verify:
         # the end-to-end invariant: stats derived from the written file must
@@ -174,25 +215,23 @@ def create_fasta_index(
 
     os.rename(tmp, header.index_file_root)
     if os.environ.get("PYKMER_TPU_STAGE_TIMING"):
-        print("stage timing:\n" + stages.report(), file=sys.stderr)
+        report = f"stage timing ({strategy} strategy):\n" + stages.report()
+        if device.type == "cuda":
+            report += (f"\n  device peak memory: "
+                       f"{torch.cuda.max_memory_allocated(device)} bytes")
+        print(report, file=sys.stderr)
     if verbose:
         print("done")
     return header
 
 
+def _sha256_hex(data) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
 def _check_supported(config: IndexConfig, kmer_len: int) -> None:
     if config.kmer_len != kmer_len:
         raise ValueError(f"config.kmer_len {config.kmer_len} != kmer_len {kmer_len}")
-    if kmer_len > MAX_KMER_LEN:
-        raise NotImplementedError(
-            f"K={kmer_len}: the port indexes K <= {MAX_KMER_LEN} so far "
-            "(ROADMAP.md, queue 1: 'K=17 on one GPU and the host strategy')"
-        )
-    if config.accumulate not in ("auto", "device"):
-        raise NotImplementedError(
-            f"accumulate={config.accumulate!r}: only the device strategy is "
-            "ported (ROADMAP.md, queue 1: 'K=17 on one GPU and the host strategy')"
-        )
     if config.readback not in ("auto", "raw"):
         raise NotImplementedError(
             f"readback={config.readback!r}: only the raw readback is ported "
@@ -215,14 +254,62 @@ def chunk_sorted_codes(
     a 0-d int64 tensor on the chunk's device).
 
     ``maskbits`` None marks an all-valid chunk (no Ns, separators or
-    padding), which skips the mask upload and unpack."""
+    padding), which skips the mask upload and unpack. The codes sort as
+    int32 while the folded plane has at most ``MAX_INT32_SORT_CELLS`` cells
+    (K <= 15), as int64 beyond."""
     fold_size = 4**kmer_len // 2
     chunk = unpack_base_2bit(bases2, span) if maskbits is None \
         else unpack_base_2bit_mask(bases2, maskbits, span)
     codes = fold_codes(canonical_codes(chunk, kmer_len), kmer_len)
     nvalid = (codes < fold_size).sum(dtype=torch.int64)
-    sort_dt = torch.int32 if fold_size <= np.iinfo(np.int32).max else torch.int64
+    sort_dt = torch.int32 if fold_size <= MAX_INT32_SORT_CELLS else torch.int64
     return sort_codes_fast(codes.to(sort_dt)), nvalid
+
+
+class ChunkUploader:
+    """Host→device copies of packed chunks.
+
+    On CUDA each chunk is staged in one of ``STAGING_SLOTS`` pinned host
+    buffers and copied with ``non_blocking=True`` on the current stream, so
+    the host stages the next chunk while the card copies and computes. An event
+    recorded after a slot's copies guards the slot: it is refilled only once
+    that event has completed. On the CPU the chunk's arrays are wrapped
+    without a copy."""
+
+    def __init__(self, device: torch.device, kmer_len: int, chunk_windows: int):
+        self.device = device
+        self.slots = []
+        self.next = 0
+        if device.type == "cuda":
+            span = chunk_windows + kmer_len - 1
+            self.slots = [
+                (torch.empty((span + 3) // 4, dtype=torch.uint8, pin_memory=True),
+                 torch.empty((span + 7) // 8, dtype=torch.uint8, pin_memory=True),
+                 torch.cuda.Event())
+                for _ in range(STAGING_SLOTS)
+            ]
+
+    def __call__(
+        self, bases2: np.ndarray, maskbits: Optional[np.ndarray]
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if not self.slots:
+            return (torch.from_numpy(bases2),
+                    None if maskbits is None else torch.from_numpy(maskbits))
+        pin_b, pin_m, done = self.slots[self.next]
+        self.next = (self.next + 1) % len(self.slots)
+        done.synchronize()  # the slot's previous copies have landed
+        dev_b = self._copy(pin_b, bases2)
+        dev_m = None if maskbits is None else self._copy(pin_m, maskbits)
+        done.record()
+        return dev_b, dev_m
+
+    def _copy(self, pinned: torch.Tensor, arr: np.ndarray) -> torch.Tensor:
+        n = arr.shape[0]
+        if n > pinned.shape[0]:
+            raise ValueError(f"chunk of {n} bytes exceeds its {pinned.shape[0]}-byte slot")
+        pinned.numpy()[:n] = arr
+        dev = torch.empty(n, dtype=torch.uint8, device=self.device)
+        return dev.copy_(pinned[:n], non_blocking=True)
 
 
 def accumulate_device(
@@ -235,12 +322,51 @@ def accumulate_device(
     ``device``, number of k-mers). The plane and the counter stay on the
     device; the count is read once at the end."""
     span = chunk_windows + kmer_len - 1
+    upload = ChunkUploader(device, kmer_len, chunk_windows)
     plane = torch.zeros(4**kmer_len // 2, dtype=torch.uint8, device=device)
     nk = torch.zeros((), dtype=torch.int64, device=device)
     for bases2, maskbits in chunks:
-        dev_b = torch.from_numpy(bases2).to(device)
-        dev_m = None if maskbits is None else torch.from_numpy(maskbits).to(device)
+        dev_b, dev_m = upload(bases2, maskbits)
         sorted_codes, nvalid = chunk_sorted_codes(dev_b, dev_m, kmer_len, span)
         nk += nvalid
         accumulate_sorted(plane, sorted_codes)
     return plane, int(nk)
+
+
+def accumulate_host(
+    chunks: Iterable[Tuple[np.ndarray, Optional[np.ndarray]]],
+    kmer_len: int,
+    chunk_windows: int,
+    device: torch.device,
+) -> Tuple[torch.Tensor, int]:
+    """Step A on ``device`` per chunk; the sorted codes come back and the host
+    applies the saturating update to a folded plane in host RAM. Returns
+    (the plane as a CPU tensor over that memory, number of k-mers)."""
+    span = chunk_windows + kmer_len - 1
+    fold_size = 4**kmer_len // 2
+    upload = ChunkUploader(device, kmer_len, chunk_windows)
+    dense = big_zeros(fold_size)
+    num_kmers = 0
+    for bases2, maskbits in chunks:
+        dev_b, dev_m = upload(bases2, maskbits)
+        sorted_codes, _ = chunk_sorted_codes(dev_b, dev_m, kmer_len, span)
+        codes = sorted_codes.cpu().numpy()
+        # sorted, so the valid codes (< the folded sentinel) are a prefix
+        valid = codes[: np.searchsorted(codes, fold_size)]
+        num_kmers += int(valid.shape[0])
+        if valid.shape[0] == 0:
+            continue
+        uniq, counts = unique_sorted(valid)
+        old = dense[uniq].astype(np.int64)
+        dense[uniq] = np.minimum(old + np.minimum(counts, MAX_VAL), MAX_VAL).astype(np.uint8)
+    return torch.from_numpy(dense), num_kmers
+
+
+def unique_sorted(sorted_vals: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``np.unique(return_counts=True)`` of an already-sorted array."""
+    is_start = np.empty(sorted_vals.shape[0], dtype=bool)
+    is_start[0] = True
+    np.not_equal(sorted_vals[1:], sorted_vals[:-1], out=is_start[1:])
+    starts = np.flatnonzero(is_start)
+    counts = np.diff(np.append(starts, sorted_vals.shape[0]))
+    return sorted_vals[starts], counts

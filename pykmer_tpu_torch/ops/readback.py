@@ -1,33 +1,34 @@
-"""Device→host tail of the index path: fetch, unfold, write + sha256.
+"""Device→host tail of the index path: the chased readback.
 
-One device-to-host copy of the folded plane into a pinned host buffer, the
-native unfold to the full 4^K array (numpy blockwise where the native library
-is absent), then a concurrent positional write and sha256. The JAX package's
-packed, sparse and escape readback modes exist for a slow host link and are
-not ported.
+:func:`stream_plane_to_out` reads the flat folded plane back in fixed-size
+slices and unfolds each into the full 4^K host array while the next slice is
+in flight; a :class:`ChaseSink` writes each finished region and its mirror to
+the `.kin` and advances the output sha256 behind the unfold. So the copy, the
+unfold, the write and the hash overlap, and host memory holds the 4^K output
+plus two slices, never a second whole-plane copy.
+
+Port of the raw path of ``pykmer_tpu/ops/readback.py`` (``_ChaseSink``,
+``unfold_range``, ``stream_dense_to_out``). The JAX package's packed, sparse
+and escape readback modes exist for a slow host link and are not ported.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-import threading
-from typing import Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pykmer_tpu.formats.header import fast_counts256
 from pykmer_tpu.utils.bigmem import big_empty
+from pykmer_tpu.utils.profiling import StageTimer
 
-
-def fetch_plane(plane: torch.Tensor) -> np.ndarray:
-    """The plane as a host numpy array: one copy into pinned memory on CUDA,
-    a view of the tensor's storage on the CPU."""
-    if plane.device.type == "cpu":
-        return plane.numpy()
-    host = torch.empty(plane.shape, dtype=plane.dtype, pin_memory=True)
-    host.copy_(plane)  # synchronous: the host reads it next
-    return host.numpy()
+SLICE_CELLS = 64 << 20  # folded cells per device-to-host slice
+UNFOLD_THREADS = 4  # host threads that unfold one slice (native, GIL-free)
+WRITE_THREADS = 2
 
 
 def _rc_codes_np(u: np.ndarray, kmer_len: int) -> np.ndarray:
@@ -62,40 +63,36 @@ def unfold_canonical(
         return out
     except ImportError:
         pass
-    m = size - 1
-    block = 1 << 22
-    for lo in range(0, half, block):
-        hi = min(half, lo + block)
-        u = np.arange(lo, hi, dtype=np.uint64)
-        canon = u <= _rc_codes_np(u, kmer_len)
-        vals = folded[lo:hi]
-        out[lo:hi] = np.where(canon, vals, 0)
-        # mirror cells [m-hi+1, m-lo] in descending-u order
-        out[m - hi + 1 : m - lo + 1] = np.where(canon, 0, vals)[::-1]
+    unfold_range(folded, out, kmer_len, 0)
     return out
 
 
-def write_and_hash(fd, arr: np.ndarray) -> str:
-    """Concurrent whole-buffer write + sha256 (hashlib releases the GIL on
-    large updates); returns the hex digest. ``fd`` may be None (hash only)."""
-    wt = None
-    err: list = []
+def unfold_range(
+    folded_slice: np.ndarray, out: np.ndarray, kmer_len: int, lo: int
+) -> None:
+    """Expand folded cells [lo, lo + len(folded_slice)) into the full 4^K
+    array ``out``: the cells themselves and their mirrors. Native single
+    thread (callers run disjoint ranges on several threads), with a blockwise
+    numpy version where the native library is absent."""
+    try:
+        from pykmer_tpu.io.native import unfold_canonical_range_native
 
-    def write() -> None:
-        try:
-            pwrite_all(fd, arr, 0)
-        except BaseException as exc:  # re-raised on the calling thread
-            err.append(exc)
-
-    if fd is not None:
-        wt = threading.Thread(target=write)
-        wt.start()
-    hex_ = hashlib.sha256(arr).hexdigest()
-    if wt is not None:
-        wt.join()
-    if err:
-        raise err[0]
-    return hex_
+        unfold_canonical_range_native(
+            np.ascontiguousarray(folded_slice), out, kmer_len, lo)
+        return
+    except ImportError:
+        pass
+    m = out.shape[0] - 1
+    end = lo + folded_slice.shape[0]
+    block = 1 << 22  # bounds the uint64 temporaries
+    for blo in range(lo, end, block):
+        bhi = min(end, blo + block)
+        u = np.arange(blo, bhi, dtype=np.uint64)
+        canon = u <= _rc_codes_np(u, kmer_len)
+        vals = folded_slice[blo - lo : bhi - lo]
+        out[blo:bhi] = np.where(canon, vals, 0)
+        # mirror cells [m-bhi+1, m-blo] in descending-u order
+        out[m - bhi + 1 : m - blo + 1] = np.where(canon, 0, vals)[::-1]
 
 
 def pwrite_all(fd, arr: np.ndarray, offset: int) -> None:
@@ -112,3 +109,146 @@ def pwrite_all(fd, arr: np.ndarray, offset: int) -> None:
         n = os.pwrite(fd, view, pos)
         view = view[n:]
         pos += n
+
+
+class ChaseSink:
+    """Write + sha256 chasing the finished regions of the unfolded plane.
+
+    ``region_done(lo, hi)`` takes ascending first-half cell ranges as they
+    become final. It queues the range and its mirror for the background
+    writers (``fd`` may be None: no file) and the range for the hasher
+    thread, which advances the sha256 frontier through the first half of
+    ``out`` in order. The second half completes in reverse region order, so
+    :meth:`finish` hashes it as one pass: the only serial remainder.
+    ``region_done`` is called from one thread."""
+
+    def __init__(self, out: np.ndarray, fd=None):
+        self.out = out
+        self.fd = fd
+        self.full = out.shape[0]
+        self.h = hashlib.sha256()
+        self.writers = ThreadPoolExecutor(WRITE_THREADS) if fd is not None else None
+        self.hasher = ThreadPoolExecutor(1)  # one worker: updates stay in order
+        self._futs: List = []
+        self.expected = 0
+
+    def region_done(self, lo: int, hi: int) -> None:
+        if hi <= lo:
+            return
+        if lo != self.expected:
+            raise ValueError(f"region [{lo}, {hi}) out of order; expected {self.expected}")
+        if self.writers is not None:
+            full = self.full
+            self._futs.append(self.writers.submit(pwrite_all, self.fd, self.out[lo:hi], lo))
+            self._futs.append(self.writers.submit(
+                pwrite_all, self.fd, self.out[full - hi : full - lo], full - hi))
+        self._futs.append(self.hasher.submit(self.h.update, self.out[lo:hi]))
+        self.expected = hi
+
+    def finish(self) -> str:
+        """Wait for every write (re-raising a failure) and return the sha256
+        of the whole of ``out``."""
+        if self.expected != self.full // 2:
+            raise ValueError(f"regions end at {self.expected}, not {self.full // 2}")
+        self._futs.append(self.hasher.submit(self.h.update, self.out[self.full // 2 :]))
+        self.abort()
+        for f in self._futs:
+            f.result()  # surface any pwrite failure (ENOSPC, EIO, ...)
+        return self.h.hexdigest()
+
+    def abort(self) -> None:
+        """Drain the writers and the hasher. On an error path this must run
+        before the caller closes ``fd``: a pwrite landing after the fd number
+        is recycled would write into an unrelated file."""
+        if self.writers is not None:
+            self.writers.shutdown(wait=True)
+        self.hasher.shutdown(wait=True)
+
+
+def _slice_bounds(half: int, slice_cells: int) -> List[Tuple[int, int]]:
+    return [(lo, min(half, lo + slice_cells)) for lo in range(0, half, slice_cells)]
+
+
+def _cuda_slices(
+    plane: torch.Tensor, bounds: List[Tuple[int, int]]
+) -> Iterator[np.ndarray]:
+    """Host copies of ``plane[lo:hi]`` for each bound, in order: two pinned
+    buffers that alternate, filled on a side stream, so slice i+1 is in
+    flight while the caller unfolds slice i. A buffer is refilled only after
+    the caller has asked for the next slice, i.e. finished with it."""
+    dev = plane.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))  # the plane is final
+    width = max(hi - lo for lo, hi in bounds)
+    bufs = [torch.empty(width, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+    ready = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def enqueue(i: int) -> None:
+        lo, hi = bounds[i]
+        with torch.cuda.stream(side):
+            bufs[i % 2][: hi - lo].copy_(plane[lo:hi], non_blocking=True)
+            ready[i % 2].record(side)
+
+    try:
+        enqueue(0)
+        for i, (lo, hi) in enumerate(bounds):
+            if i + 1 < len(bounds):
+                enqueue(i + 1)
+            ready[i % 2].synchronize()
+            yield bufs[i % 2].numpy()[: hi - lo]
+    finally:
+        side.synchronize()  # no copy may outlive its buffer
+
+
+def stream_plane_to_out(
+    plane: torch.Tensor,
+    kmer_len: int,
+    out: np.ndarray,
+    fd=None,
+    slice_cells: int = SLICE_CELLS,
+    stages: Optional[StageTimer] = None,
+) -> Tuple[np.ndarray, str]:
+    """Read the flat folded ``plane`` (uint8[4^K/2], on the card or the CPU)
+    back slice by slice, unfold it into ``out`` (uint8[4^K]), write ``out``
+    to ``fd`` (optional) and hash it, each chasing the one before.
+
+    Returns (256-bin counts of the folded plane as int64[256], sha256 hex of
+    ``out``), as ``stream_dense_to_out(..., hash_out=True)`` does. A CPU
+    plane is read in place. ``stages`` receives two entries: the slice loop
+    ("copy + unfold") and what remains after it ("write + hash drain": the
+    writes and hashes still queued, then the mirror half's hash)."""
+    half = plane.shape[0]
+    if plane.dtype != torch.uint8 or plane.dim() != 1 or not plane.is_contiguous():
+        raise ValueError("plane must be a contiguous 1-D uint8 tensor")
+    if 2 * half != 4**kmer_len or out.shape[0] != 2 * half or out.dtype != np.uint8:
+        raise ValueError(f"need a 4^{kmer_len}/2-cell plane and a uint8[4^{kmer_len}] out")
+    bounds = _slice_bounds(half, slice_cells)
+    if plane.device.type == "cpu":
+        host = plane.numpy()
+        slices = (host[lo:hi] for lo, hi in bounds)
+    elif plane.device.type == "cuda":
+        slices = _cuda_slices(plane, bounds)
+    else:
+        raise ValueError(f"no readback from device {plane.device}")
+
+    stages = stages or StageTimer()
+    counts = np.zeros(256, dtype=np.int64)
+    sink = ChaseSink(out, fd)
+    try:
+        with stages.stage("copy + unfold"), ThreadPoolExecutor(UNFOLD_THREADS) as pool:
+            for (lo, hi), folded in zip(bounds, slices):
+                part = -(-(hi - lo) // UNFOLD_THREADS)
+                unfolds = [pool.submit(unfold_range, folded[a : a + part], out,
+                                       kmer_len, lo + a)
+                           for a in range(0, hi - lo, part)]
+                counts += fast_counts256(folded)
+                for f in unfolds:
+                    f.result()
+                sink.region_done(lo, hi)
+        with stages.stage("write + hash drain"):
+            return counts, sink.finish()
+    except BaseException:
+        sink.abort()
+        raise
+    finally:
+        slices.close()

@@ -13,9 +13,11 @@ import torch
 
 from .histogram import saturating_accumulate_sorted
 
-# kernel launches in this process; a run resets it to 0 to show that its
-# main path went through the kernel (the CPU path does not count)
+# kernel launches in this process, all and those of the int64 launcher; a
+# run resets them to 0 to show that its main path went through the kernel
+# (the CPU path does not count)
 LAUNCHES = 0
+LAUNCHES_I64 = 0
 
 
 def accumulate_sorted(plane: torch.Tensor, sorted_codes: torch.Tensor) -> torch.Tensor:
@@ -29,7 +31,7 @@ def accumulate_sorted(plane: torch.Tensor, sorted_codes: torch.Tensor) -> torch.
     the card the check would cost a device sync per batch, and an unsorted
     batch there gives wrong counts but stays inside the plane.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_I64
     if plane.dtype != torch.uint8 or plane.dim() != 1 or not plane.is_contiguous():
         raise ValueError(
             f"plane must be a contiguous 1-D uint8 tensor, got {plane.dtype} "
@@ -64,4 +66,5 @@ def accumulate_sorted(plane: torch.Tensor, sorted_codes: torch.Tensor) -> torch.
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1
+    LAUNCHES_I64 += sorted_codes.dtype == torch.int64
     return plane

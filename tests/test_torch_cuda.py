@@ -6,6 +6,9 @@ runs on a GPU machine without it; tests/conftest.py does import jax, hence:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import gzip
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -80,3 +83,51 @@ def test_index_cuda_matches_cpu(cuda, tmp_path):
             out.append((fh.read(), h.num_kmers, h.hist, sweep.LAUNCHES))
     assert out[0][:3] == out[1][:3]
     assert out[0][3] == 0 and out[1][3] > 1  # one launch per chunk on CUDA
+
+
+def _genome(path, rng, n_records=12, length=30_000):
+    seq = rng.choice(list("ACGTN"), p=[0.24, 0.24, 0.24, 0.24, 0.04],
+                     size=n_records * length)
+    with open(path, "w") as fh:
+        for r in range(n_records):
+            fh.write(f">r{r}\n" + "".join(seq[r * length : (r + 1) * length]) + "\n")
+    return path
+
+
+def _kin(header):
+    with open(header.index_file_root, "rb") as fh:
+        kin = fh.read()
+    os.remove(header.index_file_root)
+    os.remove(header.metadata_file)
+    return kin, header.num_kmers, header.hist
+
+
+def test_streaming_index_matches_gzip_on_card(cuda, tmp_path):
+    """K=11 on the card: the streaming index of a plain file (many segments)
+    equals the pipelined index of its gzip copy; both launch the sweep."""
+    fasta = _genome(str(tmp_path / "s.fa"), np.random.default_rng(4))
+    gz = str(tmp_path / "s2.fa.gz")
+    with open(fasta, "rb") as src, gzip.open(gz, "wb") as dst:
+        dst.write(src.read())
+    cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 16)
+    out = []
+    for path in (fasta, gz):
+        sweep.LAUNCHES = 0
+        out.append(_kin(create_fasta_index(path, "s", path, 11, config=cfg,
+                                           verbose=False, device=cuda)))
+        assert sweep.LAUNCHES > 1
+    assert out[0] == out[1]
+
+
+def test_host_strategy_matches_device_on_card(cuda, tmp_path):
+    """K=11 on the card: step A on the card with the host's update equals
+    the device strategy; only the device strategy launches the sweep."""
+    fasta = _genome(str(tmp_path / "h.fa"), np.random.default_rng(5))
+    out = []
+    for accumulate in ("device", "host"):
+        cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 16, accumulate=accumulate)
+        sweep.LAUNCHES = 0
+        out.append(_kin(create_fasta_index(fasta, "s", fasta, 11, config=cfg,
+                                           verbose=False, device=cuda)))
+        assert (sweep.LAUNCHES > 1) == (accumulate == "device")
+    assert out[0] == out[1]

@@ -172,8 +172,8 @@ def test_no_valid_kmers_raises_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("cfg,exc", [
-    (IndexConfig(kmer_len=17), NotImplementedError),
-    (IndexConfig(kmer_len=7, accumulate="host"), NotImplementedError),
+    (IndexConfig(kmer_len=7, readback="2bit"), NotImplementedError),
+    (IndexConfig(kmer_len=7, readback="sparse"), NotImplementedError),
     (IndexConfig(kmer_len=7, readback="3bit"), NotImplementedError),
     (IndexConfig(kmer_len=7, kernel="pallas"), ValueError),
 ])
@@ -262,22 +262,36 @@ def test_unfold_matches(kmer_len, monkeypatch):
 
 
 def test_write_and_hash_matches(tmp_path):
+    """The chase sink (regions in order, ragged last one) writes and hashes
+    what the JAX package's whole-buffer ``_write_and_hash`` does, through a
+    DirectWriter and through a raw fd."""
     from pykmer_tpu.io.direct import DirectWriter
 
     arr = np.random.default_rng(4).integers(0, 256, size=1 << 16).astype(np.uint8)
-    digests = []
-    for name, fn in (("t", trb.write_and_hash), ("j", jrb._write_and_hash)):
-        path = str(tmp_path / name)
-        with DirectWriter(path, size=arr.shape[0]) as fd:
-            digests.append(fn(fd, arr))
-        assert _read(path) == arr.tobytes()
+    half = arr.shape[0] // 2
+    jpath = str(tmp_path / "j")
+    with DirectWriter(jpath, size=arr.shape[0]) as fd:
+        digests = [jrb._write_and_hash(fd, arr)]
+    assert _read(jpath) == arr.tobytes()
+
+    def chase(fd):
+        sink = trb.ChaseSink(arr, fd)
+        for lo in range(0, half, 5000):
+            sink.region_done(lo, min(half, lo + 5000))
+        return sink.finish()
+
+    tpath = str(tmp_path / "t")
+    with DirectWriter(tpath, size=arr.shape[0]) as fd:
+        digests.append(chase(fd))
     raw = str(tmp_path / "raw")
     fd = os.open(raw, os.O_CREAT | os.O_WRONLY)
     try:
-        digests.append(trb.write_and_hash(fd, arr))
+        digests.append(chase(fd))
     finally:
         os.close(fd)
-    assert _read(raw) == arr.tobytes()
+    digests.append(chase(None))  # hash only
+    for path in (tpath, raw):
+        assert _read(path) == arr.tobytes()
     assert len(set(digests)) == 1
 
 

@@ -21,11 +21,16 @@ sys.modules["jaxlib"] = None
 from pykmer_tpu.config import IndexConfig
 import pykmer_tpu_torch
 from pykmer_tpu_torch import cli, state
+from pykmer_tpu_torch.host import chunks, decode, pipeline, segments
+from pykmer_tpu_torch.index import index_batch, read_fasta_index
 from pykmer_tpu_torch.ops import _build, encode, histogram, readback, sweep
 h = pykmer_tpu_torch.create_fasta_index(
     sys.argv[1], "s", sys.argv[1], 5,
     config=IndexConfig(kmer_len=5, chunk_windows=64), verbose=False, device="cpu")
 assert h.num_kmers > 0
+assert cli.main(["index", sys.argv[1], "s", "5", "--quiet", "--device", "cpu",
+                 "--accumulate", "host", "--bgzip"]) == 0
+read_fasta_index(sys.argv[1], input_file=sys.argv[1], kmer_len=5, verbose=False)
 for name in ("pykmer_tpu.ops", "pykmer_tpu.index", "pykmer_tpu.parallel",
              "pykmer_tpu.merge", "pykmer_tpu._jax_setup"):
     assert name not in sys.modules, name
