@@ -34,14 +34,29 @@ Phases — each one passes or raises, and any failure exits non-zero:
    the same chunks gives a kernel plane equal to the plain-sweep plane
    (``torch.equal`` on the card) whose stats are the `.kin`'s. Each 16 GiB
    `.kin` is removed as soon as it is checked;
-7. a JSON line of the kernels, then the last line
+7. merge fan-in at the reference's workload shape: 39 synthetic K=13
+   samples, 8 of them `.kin.bgz` (``scripts/bench_merge_fanin.py``'s
+   ``fabricate_kin``, seeds 1000+i), merged through the CLI entry with the
+   device engine on the card and with the host engine: equal `.kma`
+   matrices, three pairs equal to ``pair_counts_stream``, the device block
+   steps one per block; the device step's time per block (CUDA events) with
+   its unpack and product apart, and the host-vs-device crossover in N;
+8. a merge pair at K=15, full size: phase 4's `.kin` and a seeded
+   perturbation of it, device engine vs host engine vs
+   ``pair_counts_stream``, with wall times and MB/s streamed;
+9. the service: ``python -m pykmer_tpu_torch serve --warmup-k 15`` as a
+   subprocess indexes the genome and its gzip copy, fails a bad index,
+   merges the two and runs distance; every reply as expected and both
+   `.kin` sha256 equal to phase 4's;
+10. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
-It exits non-zero, printing no result, where CUDA is unavailable or outside
-a checkout of the repository. It never imports jax. Scratch files go under
-``build/smoke`` (git-ignored) and are removed at the end. It needs about
-35 GiB of free disk there (two 1 GiB K=15 files, one 16 GiB K=17 file at a
-time) and 40 GiB of host memory.
+Phases 7-9 run between phases 2 and 3 (7) and after phase 5 (8, 9). The
+script exits non-zero, printing no result, where CUDA is unavailable or
+outside a checkout of the repository. It never imports jax. Scratch files go
+under ``build/smoke`` (git-ignored) and are removed at the end. It needs
+about 35 GiB of free disk there (two 1 GiB K=15 files, one 16 GiB K=17 file
+at a time) and 40 GiB of host memory.
 """
 
 import contextlib
@@ -66,6 +81,9 @@ BIG_K = 17
 ORACLE_K = 11
 H100_SXM_BYTES_PER_S = 3.35e12  # published HBM3 bandwidth of the H100 SXM
 PROFILE_TOP = 8  # device items listed by the profiled run
+FANIN_N, FANIN_K, FANIN_BGZ = 39, 13, 8  # the reference's 39-genome merge
+FANIN_PAIRS = ((0, 1), (7, 8), (20, 38))  # bgz-bgz, bgz-raw, raw-raw
+CROSSOVER_N = (2, 4, 8, 16, 31)  # merge sizes timed with both engines
 
 
 def log(msg):
@@ -381,7 +399,7 @@ def phase_k15_variants(work, dev, genome, total_bp, want_sha):
             raise AssertionError(f"K={k} {label}: .kin sha256 differs from the streaming run's")
         if (sweep.LAUNCHES == 0) != (label == "host strategy"):
             raise AssertionError(f"K={k} {label}: {sweep.LAUNCHES} sweep launches")
-    os.remove(gz)
+    return gz
 
 
 def chunk_step_times(dev, chunk, cw):
@@ -518,6 +536,249 @@ def phase_k17(work, dev, genome):
     return launches_i64, err
 
 
+def device_blocks(n, k):
+    """Blocks of the device engine for ``n`` samples at ``k`` with the
+    default block size (the engine's own clamp and alignment)."""
+    from pykmer_tpu.config import DEFAULT_BLOCK_SIZE
+    from pykmer_tpu_torch.merge.merger import _aligned_block
+    from pykmer_tpu_torch.ops.compare import padded_rows
+
+    clamp = (2 << 30) // padded_rows(n) // 8 * 8
+    block = _aligned_block(min(DEFAULT_BLOCK_SIZE, clamp), 4**k)
+    return block, -(-4**k // block)
+
+
+def merge_both(work, name, kins, dev, k):
+    """``merge`` through the CLI entry in this process, with the device
+    engine on the card and with the host engine; the two `.kma` matrices
+    must be equal and the device engine must step once per block. Returns
+    (matrix, {engine: wall seconds})."""
+    from pykmer_tpu.formats.kma import read_kma
+    from pykmer_tpu_torch import cli
+    from pykmer_tpu_torch.ops import compare
+
+    if "PYKMER_TPU_MERGE_HBM_BYTES" in os.environ:
+        raise RuntimeError("PYKMER_TPU_MERGE_HBM_BYTES is set: the block count check "
+                           "assumes the default budget")
+    matrices, walls = {}, {}
+    for engine in ("device", "host"):
+        proj = os.path.join(work, f"{name}_{engine}")
+        compare.STEPS = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["merge", proj, *kins, "--engine", engine, "--device", str(dev),
+                       "--quiet"])
+        walls[engine] = time.perf_counter() - t0
+        steps = compare.STEPS
+        if rc != 0:
+            raise RuntimeError(f"merge --engine {engine} exited {rc}")
+        want = device_blocks(len(kins), k)[1] if engine == "device" else 0
+        if steps != want:
+            raise AssertionError(f"merge --engine {engine}: {steps} device block steps, "
+                                 f"expected {want}")
+        kma = proj + ".001-255.kma"
+        matrices[engine] = read_kma(kma)
+        os.remove(kma)
+        os.remove(kma + ".json")
+    import numpy as np
+
+    if not np.array_equal(matrices["device"], matrices["host"]):
+        raise AssertionError(f"{name}: the device engine's .kma differs from the host's")
+    return matrices["device"], walls
+
+
+def check_pairs(matrix, kins, pairs, k):
+    from pykmer_tpu_torch.merge import pair_counts_stream
+
+    for i, j in pairs:
+        want = pair_counts_stream(kins[i], kins[j], 4**k)
+        got = tuple(int(x) for x in matrix[i, j])
+        if got != want:
+            raise AssertionError(f"pair ({i}, {j}): .kma {got} != pair_counts_stream {want}")
+
+
+def merge_step_times(dev, n, k):
+    """The device step at the engine's block shape for ``n`` samples on
+    random bits: median ms of the pinned upload, the unpack, the stacked
+    product and the whole step, and of the unstacked product it replaces
+    (checked equal). Returns the step's ms."""
+    import torch
+
+    from pykmer_tpu_torch.ops import compare
+
+    block, n_blocks = device_blocks(n, k)
+    rows = compare.padded_rows(n)
+    s = compare.segments(rows)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bits = torch.randint(0, 256, (n, block // 8), dtype=torch.uint8, device=dev,
+                         generator=g)
+    pinned = bits.cpu().pin_memory()
+    ws = compare.new_workspace(n, block, dev)
+    acc = torch.zeros((n, n), dtype=torch.int64, device=dev)
+    compare.unpack_validity(bits, rows, ws)
+    stacked = compare.stacked_product(ws, s, torch._int_mm)
+    plain = torch._int_mm(ws, ws.t())
+    if not torch.equal(stacked, plain.to(torch.int64)):
+        raise AssertionError("the stacked product differs from the unstacked _int_mm")
+    times = {
+        "n": n, "rows": rows, "segments": s, "block_cells": block, "blocks": n_blocks,
+        "h2d_pinned_ms": median_ms(lambda: bits.copy_(pinned, non_blocking=True), 10),
+        "unpack_ms": median_ms(lambda: compare.unpack_validity(bits, rows, ws), 10),
+        "product_stacked_ms": median_ms(
+            lambda: compare.stacked_product(ws, s, torch._int_mm), 10),
+        "step_ms": median_ms(lambda: compare.block_contingency(acc, bits, ws), 10),
+        "product_unstacked_ms": median_ms(lambda: torch._int_mm(ws, ws.t()), 3),
+    }
+    log("merge device step, median device ms: " + json.dumps(times))
+    del bits, pinned, ws, acc, stacked, plain
+    torch.cuda.empty_cache()
+    return times["step_ms"]
+
+
+def phase_merge_fanin(work, dev):
+    """N=39 at K=13 (8 .bgz): device vs host engine through the CLI entry,
+    three pairs vs pair_counts_stream, the device step's time, and the
+    host-vs-device crossover in N."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scripts.bench_merge_fanin import fabricate_kin
+    from pykmer_tpu_torch.merge import merge
+
+    k, d = FANIN_K, os.path.join(work, "fanin")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        kins = list(pool.map(
+            lambda i: fabricate_kin(os.path.join(d, f"s{i:02d}"), k, seed=1000 + i,
+                                    bgz=i < FANIN_BGZ), range(FANIN_N)))
+    log(f"fan-in: {FANIN_N} K={k} samples ({FANIN_BGZ} .kin.bgz) fabricated in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    kins = sorted(kins)
+    matrix, walls = merge_both(work, "fanin", kins, dev, k)
+    check_pairs(matrix, kins, FANIN_PAIRS, k)
+    streamed = FANIN_N * 4**k
+    log(f"merge fan-in N={FANIN_N} K={k}: device engine {walls['device']:.3f} s, host "
+        f"engine {walls['host']:.3f} s ({device_blocks(FANIN_N, k)[1]} device blocks); "
+        f".kma equal, pairs {list(FANIN_PAIRS)} equal to pair_counts_stream; "
+        f"{streamed / walls['device'] / 1e6:.0f} MB/s streamed by the device engine")
+    step_ms = merge_step_times(dev, FANIN_N, k)
+
+    raw = kins[FANIN_BGZ:]
+    for nn in CROSSOVER_N:
+        sub, got = raw[:nn], {"host": [], "device": []}
+        for i, engine in enumerate(("host", "device", "device", "host")):
+            t0 = time.perf_counter()
+            merge(os.path.join(d, f"x{nn}_{i}"), sub, engine=engine, verbose=False,
+                  device=dev)
+            got[engine].append(round(time.perf_counter() - t0, 3))
+        log(f"merge crossover N={nn} K={k} raw .kin: host {got['host']} s, "
+            f"device {got['device']} s")
+    shutil.rmtree(d)
+    return step_ms
+
+
+def perturb(kin, out, dev):
+    """A seeded copy of ``kin``: nonzero counts jittered by -3..3 (clipped
+    to 0..255), 2% of the empty cells set to 1, then 5% of all cells
+    zeroed, so that neither sample's valid cells hold the other's."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    t = torch.from_numpy(np.fromfile(kin, dtype=np.uint8)).to(dev)
+    jitter = torch.randint(-3, 4, t.shape, dtype=torch.int16, device=dev, generator=g)
+    fresh = (torch.rand(t.shape, device=dev, generator=g) < 0.02).to(torch.int16)
+    t16 = torch.where(t > 0, t.to(torch.int16) + jitter, fresh).clamp_(0, 255)
+    del jitter, fresh
+    t16[torch.rand(t.shape, device=dev, generator=g) < 0.05] = 0
+    t16.to(torch.uint8).cpu().numpy().tofile(out)
+    del t, t16
+    torch.cuda.empty_cache()
+
+
+def phase_merge_pair(work, dev, genome):
+    """Phase 4's K=15 `.kin` and a perturbation of it: device engine vs host
+    engine vs pair_counts_stream. Both files are removed."""
+    from pykmer_tpu_torch.merge import pair_counts_stream
+
+    k = SLICE_K
+    kin = genome + f".{k:02d}.kin"
+    pert = os.path.join(work, f"pert.fa.{k:02d}.kin")
+    t0 = time.perf_counter()
+    perturb(kin, pert, dev)
+    shutil.copyfile(kin + ".json", pert + ".json")
+    log(f"merge pair: perturbed copy written in {time.perf_counter() - t0:.1f} s (set-up)")
+    kins = sorted([kin, pert])
+    matrix, walls = merge_both(work, "pair", kins, dev, k)
+    want = pair_counts_stream(kins[0], kins[1], 4**k)
+    if tuple(int(x) for x in matrix[0, 1]) != want or want[2] in (0, min(want[:2])):
+        raise AssertionError(f"merge pair: {matrix[0, 1]} vs pair_counts_stream {want}")
+    streamed = 2 * 4**k
+    log(f"merge pair K={k}: device engine {walls['device']:.3f} s "
+        f"({streamed / walls['device'] / 1e6:.0f} MB/s streamed), host engine "
+        f"{walls['host']:.3f} s ({streamed / walls['host'] / 1e6:.0f} MB/s); .kma "
+        f"equal, (a, b, shared) = {want} = pair_counts_stream")
+    for p in (kin, pert):
+        os.remove(p)
+        os.remove(p + ".json")
+
+
+def phase_serve(work, dev, genome, gz, want_sha, want_kmers):
+    """``serve --warmup-k 15`` in a subprocess: index the genome and its gzip
+    copy, a failing index, merge, distance, shutdown."""
+    from pykmer_tpu.formats.kma import read_kma
+    from pykmer_tpu.utils.checksum import sha256_file
+
+    k = SLICE_K
+    kins = [p + f".{k:02d}.kin" for p in (genome, gz)]
+    proj = os.path.join(work, "served")
+    kma = proj + ".001-255.kma"
+    reqs = [
+        {"cmd": "ping"},
+        {"cmd": "index", "input": genome, "sample": "s", "kmer_len": k},
+        {"cmd": "index", "input": gz, "sample": "g", "kmer_len": k},
+        {"cmd": "index", "input": os.path.join(work, "missing.fa"), "sample": "x",
+         "kmer_len": k},
+        {"cmd": "merge", "project": proj, "indexes": kins},
+        {"cmd": "distance", "matrix_file": kma},
+        {"cmd": "shutdown"},
+    ]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pykmer_tpu_torch", "serve", "--warmup-k", str(k),
+         "--device", str(dev)],
+        input="".join(json.dumps(r) + "\n" for r in reqs), cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    resps = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    oks = [r.get("ok") for r in resps]
+    if [r.get("cmd") for r in resps] != [r["cmd"] for r in reqs] \
+            or oks != [True, True, True, False, True, True, True]:
+        raise AssertionError(f"serve replies: {resps}")
+    for r, kin in zip(resps[1:3], kins):
+        if r["output"] != kin or r["num_kmers"] != want_kmers:
+            raise AssertionError(f"serve index reply {r}")
+        if sha256_file(kin) != want_sha:
+            raise AssertionError(f"served {kin}: sha256 differs from phase 4's")
+    if resps[4]["samples"] != 2 or "error" not in resps[3]:
+        raise AssertionError(f"serve replies: {resps}")
+    m = read_kma(kma)
+    if not (m[0, 1, 0] == m[0, 1, 1] == m[0, 1, 2] > 0):
+        raise AssertionError(f"served merge of two equal samples: {m[0, 1]}")
+    if not os.path.exists(kma + ".dist.jaccard.npz"):
+        raise AssertionError("served distance wrote no .dist.jaccard.npz")
+    log(f"serve: {len(reqs)} requests answered as expected in {wall:.1f} s (process "
+        f"start and warmup included); index seconds: genome {resps[1]['seconds']}, "
+        f"gzip -1 copy {resps[2]['seconds']}; merge {resps[4]['seconds']} s, distance "
+        f"{resps[5]['seconds']} s; both .kin sha256 {want_sha}")
+    for kin in kins:
+        os.remove(kin)
+        os.remove(kin + ".json")
+    os.remove(gz)
+
+
 def merged_us(intervals):
     """Total length of a set of [start, end) intervals, overlaps counted once."""
     total, cur_s, cur_e = 0.0, None, None
@@ -592,7 +853,7 @@ def main():
     from pykmer_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (set-up)\n{_build.BUILD_LOG.strip()}")
     smi = subprocess.run(
@@ -607,13 +868,16 @@ def main():
     os.makedirs(work)
     try:
         k15_sweep, k17_sweep = phase_kernels(dev)
+        phase_merge_fanin(work, dev)
         small_fa = phase_oracle(work, dev)
         launches, genome, chunks, cw, total_bp, sha = phase_slice(work, dev)
-        phase_k15_variants(work, dev, genome, total_bp, sha)
+        gz = phase_k15_variants(work, dev, genome, total_bp, sha)
         chunk_step_times(dev, chunks[len(chunks) // 2], cw)
         del chunks
         profiled_run(dev, genome, total_bp)
-        take_outputs(genome + f".{SLICE_K:02d}.kin")  # room for the 16 GiB files
+        num_kmers = json.load(open(genome + f".{SLICE_K:02d}.kin.json"))["num_kmers"]
+        phase_merge_pair(work, dev, genome)  # removes the K=15 .kin
+        phase_serve(work, dev, genome, gz, sha, num_kmers)
         phase_k17_oracle(work, dev, small_fa)
         launches_i64, replay_err = phase_k17(work, dev, genome)
     finally:
@@ -634,6 +898,7 @@ def main():
             "ms": ms,
             "plain_ms": plain_ms,
         })
+    log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,11 @@
 """pykmer_tpu_torch — the PyTorch / CUDA port of pykmer_tpu.
 
 This package indexes FASTA into the same `.kin` + `.kin.json` files as
-``pykmer_tpu`` (byte-identical `.kin`), on an NVIDIA GPU. The device work is
-torch ops plus hand-written CUDA kernels (``csrc/``); the host layer reuses
-pykmer_tpu's JAX-free modules (``formats``, ``io``, ``utils``, ``config``,
-``oracle``). It never imports jax.
+``pykmer_tpu`` (byte-identical `.kin`), and merges indexes into the same
+`.kma` + `.kma.json`, on an NVIDIA GPU. The device work is torch ops plus
+hand-written CUDA kernels (``csrc/``); the host layer reuses pykmer_tpu's
+JAX-free modules (``formats``, ``io``, ``utils``, ``config``, ``oracle``,
+``analysis``, ``testgen``). It never imports jax.
 
 Layout
 ------
@@ -13,10 +14,19 @@ Layout
                 reader, the pipelined chunk producer, chunk framing / 2-bit
                 packing
 - ``ops``     : device programs — encode, sort, the saturating sweep kernel
-                and its plain version, the chased readback tail
+                and its plain version, the chased readback tail, the merge's
+                per-block V·Vᵀ step
 - ``state``   : folded-plane exchange with numpy (and the JAX package)
 - ``index``   : the single-GPU indexer, batch indexing, index verification
+- ``merge``   : the N×N merge (host popcount and device engines) → `.kma`
+- ``serve``   : the JSON-lines service over index, merge and distance
+- ``cli``     : ``python -m pykmer_tpu_torch <subcommand>``
 - ``csrc``    : CUDA C++ kernel sources, built at first use
+
+State the two packages share is on disk: the `.kin` and `.kma` files, both
+read and written through ``pykmer_tpu.formats``. The merge's only device
+state, its int64 accumulator, comes back as a numpy array as the JAX
+engine's does, so no conversion function is needed beyond ``state``'s.
 
 Every public function takes an explicit ``device``; nothing falls back to
 the CPU when CUDA is missing.

@@ -7,21 +7,40 @@
         [--overwrite] [--chunk-windows N] [--accumulate auto|device|host]
         [--bgzip] [--no-verify] [--quiet] [--device cuda]
     python -m pykmer_tpu_torch read <input> <K> [--debug]
+    python -m pykmer_tpu_torch merge <Project> <a.kin> <b.kin> ...
+        [--min-count N] [--max-count N] [--buffer-size B] [--block-size N]
+        [--threads N] [--engine auto|host|device] [--quiet] [--device cuda]
+    python -m pykmer_tpu_torch distance <matrix.kma> [names.tsv]
+    python -m pykmer_tpu_torch kwip <all.dist> [names.tsv] [--compare-kma X.kma]
+    python -m pykmer_tpu_torch gzi <file.gzi>
+    python -m pykmer_tpu_torch testgen [prefix] [K ...]
+    python -m pykmer_tpu_torch bgzip <file> [--level N] [--delete]
+    python -m pykmer_tpu_torch serve [--warmup-k K] [--device cuda]
 
-The argument names and exit codes are those of ``pykmer_tpu.cli``. Its
-multi-device flags of ``index`` and its other subcommands are accepted so
-that they answer "not yet ported" (exit code 2) instead of an argparse error.
+The argument names and exit codes are those of ``pykmer_tpu.cli``.
+``distance``, ``kwip``, ``gzi``, ``testgen`` and ``bgzip`` run the JAX
+package's JAX-free functions. The multi-device flags (``index --shards``,
+``--data-parallel``, ``--checkpoint-every``, ``--coordinator``,
+``--num-processes``, ``--process-id``; ``merge --shards`` above 1) are
+accepted so that they answer "not yet ported" (exit code 2) instead of an
+argparse error.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
-from pykmer_tpu.config import IndexConfig
+from pykmer_tpu.config import (
+    DEFAULT_BLOCK_SIZE,
+    DEFAULT_MAX_COUNT,
+    DEFAULT_MIN_COUNT,
+    DEFAULT_THREADS,
+    IndexConfig,
+)
 
-NOT_PORTED = ("merge", "distance", "kwip", "gzi", "testgen", "bgzip", "serve")
 DEVICE_HELP = ("torch device (default cuda; fails when CUDA is unavailable — "
                "pass cpu explicitly)")
 
@@ -80,9 +99,54 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("kmer_len", type=int)
     p.add_argument("--debug", action="store_true")
 
-    for name in NOT_PORTED:
-        q = sub.add_parser(name, help="not yet ported (see pykmer_tpu)")
-        q.add_argument("args", nargs=argparse.REMAINDER)
+    p = sub.add_parser("merge", help="merge kmer databases into a .kma matrix")
+    p.add_argument("Project_Name")
+    p.add_argument("Kmers", nargs="+", help="list of .kin[.bgz] files")
+    p.add_argument("--min-count", type=int, default=DEFAULT_MIN_COUNT)
+    p.add_argument("--max-count", type=int, default=DEFAULT_MAX_COUNT)
+    p.add_argument("--buffer-size", type=int, default=None,
+                   help="raw-file buffer for gzip-wrapped .bgz streams (raw "
+                        ".kin inputs use O_DIRECT block reads)")
+    p.add_argument("--block-size", type=int, default=DEFAULT_BLOCK_SIZE)
+    p.add_argument("--threads", type=int, default=DEFAULT_THREADS)
+    p.add_argument("--engine", choices=("auto", "host", "device"),
+                   default="auto",
+                   help="auto: host popcount engine for small N, the device "
+                        "engine at fan-in scale")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    p.add_argument("--shards", type=int, default=None)  # not yet ported
+
+    p = sub.add_parser("distance", help="Jaccard distances + NJ tree from .kma")
+    p.add_argument("matrix_file")
+    p.add_argument("names_file", nargs="?", default=None)
+
+    p = sub.add_parser("kwip", help="cluster a kWIP .dist matrix; optionally "
+                                    "cross-validate vs a .kma")
+    p.add_argument("dist_file")
+    p.add_argument("names_file", nargs="?", default=None)
+    p.add_argument("--compare-kma", default=None,
+                   help="also report distance/topology agreement vs this "
+                        ".kma matrix")
+
+    p = sub.add_parser("gzi", help="dump a .gzi random-access index")
+    p.add_argument("index_file")
+
+    p = sub.add_parser("testgen", help="write 4^K enumeration fixtures")
+    p.add_argument("prefix", nargs="?", default="examples/example-")
+    p.add_argument("kmer_lens", nargs="*", type=int)
+
+    p = sub.add_parser("bgzip", help="BGZF-compress a file (+ .gzi index)")
+    p.add_argument("file")
+    p.add_argument("--level", type=int, default=6)
+    p.add_argument("--delete", action="store_true", help="remove the source")
+
+    p = sub.add_parser("serve", help="long-lived JSON-lines service "
+                                     "(stdin->stdout): index/merge/distance")
+    p.add_argument("--warmup-k", type=int, default=None,
+                   help="pay the first-use costs of an index at this K "
+                        "before accepting commands")
+    p.add_argument("--device", default="cuda", help=DEVICE_HELP)
     return parser
 
 
@@ -150,7 +214,73 @@ def main(argv: Optional[List[str]] = None) -> int:
                          kmer_len=args.kmer_len, debug=args.debug)
         return 0
 
-    return _not_ported(f"'{args.command}'")
+    if args.command == "merge":
+        if len(args.Kmers) <= 1:
+            print("needs at least 2 files")
+            return 1
+        if (args.shards or 0) > 1:
+            return _not_ported("merge over several devices (--shards)")
+        from .merge import merge
+
+        merge(
+            args.Project_Name, sorted(args.Kmers),
+            min_count=args.min_count, max_count=args.max_count,
+            block_size=args.block_size, threads=args.threads,
+            buffer_size=args.buffer_size, engine=args.engine,
+            verbose=not args.quiet, device=args.device,
+        )
+        return 0
+
+    if args.command == "distance":
+        from pykmer_tpu.analysis.distance import load
+
+        load(args.matrix_file, names_file=args.names_file)
+        return 0
+
+    if args.command == "kwip":
+        from pykmer_tpu.analysis.kwip import compare_with_kma, load_kwip
+
+        load_kwip(args.dist_file, names_file=args.names_file)
+        if args.compare_kma:
+            rep = compare_with_kma(args.dist_file, args.compare_kma)
+            print(f"samples matched     : {rep['n_samples']}")
+            print(f"pearson (condensed) : {rep['pearson']:.4f}")
+            print(f"spearman (condensed): {rep['spearman']:.4f}")
+            print(f"nearest-neighbour agreement: {rep['nn_agreement']:.2%}")
+        return 0
+
+    if args.command == "serve":
+        from .serve import serve, warmup
+
+        if args.warmup_k is not None:
+            warmup(args.warmup_k, args.device)
+        return serve(device=args.device)
+
+    if args.command == "gzi":
+        from pykmer_tpu.io.gzi import print_index
+
+        print_index(args.index_file)
+        return 0
+
+    if args.command == "testgen":
+        from pykmer_tpu import testgen
+
+        os.makedirs(os.path.dirname(args.prefix) or ".", exist_ok=True)
+        for k in args.kmer_lens or [3, 5, 7, 9, 11, 13, 15, 17, 19, 21]:
+            print(k)
+            testgen.create_test_fasta(args.prefix, k)
+        return 0
+
+    if args.command == "bgzip":
+        from pykmer_tpu.io.bgzf import compress_file
+
+        bgz, gzi = compress_file(args.file, level=args.level)
+        if args.delete:
+            os.remove(args.file)
+        print(f"wrote {bgz} + {gzi}")
+        return 0
+
+    return 2
 
 
 if __name__ == "__main__":

@@ -4,5 +4,6 @@
 - ``histogram`` : keys-only sort + the plain saturating accumulate
 - ``sweep``     : the CUDA saturating-sweep kernel's wrapper
 - ``readback``  : the chased device→host tail: copy, unfold, write + hash
+- ``compare``   : the merge's per-block step, V·Vᵀ into an int64 accumulator
 - ``_build``    : nvcc build + ctypes load of ``csrc/`` (CUDA only)
 """

@@ -131,3 +131,66 @@ def test_host_strategy_matches_device_on_card(cuda, tmp_path):
                                            verbose=False, device=cuda)))
         assert (sweep.LAUNCHES > 1) == (accumulate == "device")
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("n", [2, 17, 39])
+def test_block_contingency_cuda_matches_cpu(cuda, n):
+    """The stacked ``_int_mm`` step on the card equals the plain int32
+    product on the CPU, over two blocks of which the second is ragged."""
+    from pykmer_tpu_torch.ops import compare
+
+    rng = np.random.default_rng(200 + n)
+    nbytes = 100_003
+    blocks = [rng.integers(0, 256, size=(n, nbytes), dtype=np.uint8) for _ in range(2)]
+    blocks[1][:, -1] &= 0x07  # the last byte's top 5 bits are pad
+    blocks[1][:, -500:] = 0  # pad bytes of a ragged block
+    accs = {}
+    for dev in ("cpu", cuda):
+        ws = compare.new_workspace(n, nbytes * 8, torch.device(dev))
+        acc = torch.full((n, n), 2**31 - 5, dtype=torch.int64, device=dev)
+        before = compare.STEPS
+        for bits in blocks:
+            compare.block_contingency(acc, torch.from_numpy(bits).to(dev), ws)
+        assert compare.STEPS == before + (2 if dev is cuda else 0)
+        accs[str(dev)] = acc.cpu()
+    torch.cuda.synchronize()
+    assert torch.equal(accs["cpu"], accs[str(cuda)])
+    v = [np.unpackbits(b, axis=1, bitorder="little").astype(np.int64) for b in blocks]
+    assert np.array_equal(accs["cpu"].numpy(), 2**31 - 5 + sum(x @ x.T for x in v))
+
+
+def test_merge_cuda_matches_host(cuda, tmp_path):
+    """A K=9 merge of three samples indexed on the card: the device engine on
+    the card equals the host engine and the streamed pair counts."""
+    from pykmer_tpu_torch.merge import merge, pair_counts_stream
+    from pykmer_tpu_torch.ops import compare
+
+    kins = []
+    for i in range(3):
+        fasta = _genome(str(tmp_path / f"m{i}.fa"), np.random.default_rng(10 + i),
+                        n_records=3, length=20_000)
+        kins.append(create_fasta_index(fasta, "s", fasta, 9, verbose=False,
+                                       device=cuda).index_file_root)
+    compare.STEPS = 0
+    _, dev = merge(str(tmp_path / "d"), kins, engine="device", block_size=50_000,
+                   verbose=False, device=cuda)
+    assert compare.STEPS == -(-4**9 // 50_000)
+    _, host = merge(str(tmp_path / "h"), kins, engine="host", verbose=False,
+                    device=cuda)
+    assert np.array_equal(dev, host)
+    for k in range(3):
+        for l in range(k + 1, 3):
+            assert tuple(int(x) for x in dev[k, l]) == \
+                pair_counts_stream(kins[k], kins[l], 4**9)
+
+
+def test_serve_warmup_on_card(cuda):
+    """warmup builds and loads the kernels and launches the sweep twice
+    (a masked and a mask-free dummy chunk) without K's plane."""
+    from pykmer_tpu_torch.serve import warmup
+
+    sweep.LAUNCHES = sweep.LAUNCHES_I64 = 0
+    torch.cuda.reset_peak_memory_stats()
+    assert warmup(17, cuda) > 0
+    assert sweep.LAUNCHES == sweep.LAUNCHES_I64 == 2
+    assert torch.cuda.max_memory_allocated() < 4**17 // 2
