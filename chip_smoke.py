@@ -48,10 +48,25 @@ Phases — each one passes or raises, and any failure exits non-zero:
    subprocess indexes the genome and its gzip copy, fails a bad index,
    merges the two and runs distance; every reply as expected and both
    `.kin` sha256 equal to phase 4's;
-10. a JSON line of the kernels, then the last line
+10. the sharded paths, with logical shards on the one card
+   (``make_mesh(devices=[cuda:0] * n)``): (a) the genome at K=15 through
+   ``create_fasta_index_sharded`` on a 1x4 and a 2x2 mesh, a run with
+   ``checkpoint_every=1`` stopped after its second save and then resumed,
+   and ``index --shards <card count>`` through the CLI entry: each `.kin`
+   sha256 equal to phase 4's and the sweep launched (R·S)^2 times per step;
+   one step's parts timed with CUDA events (bucket, exchange, the received
+   rows applied one launch per row against one re-sort and one launch);
+   (d) one K=15 step set on ``[cuda:0] * 4`` ``torch.equal`` to the same
+   step on ``[cpu] * 4``; (c) the fan-in of phase 7 through ``merge(...,
+   n_shards=4, mesh=...)``: the `.kma` matrix of the single-device engine,
+   four block steps per block; (b) the genome at K=17 over 8 shards (eight
+   1 GiB local planes, int32 local codes) and over 4 (int64 local codes),
+   each `.kin` sha256 equal to phase 6's;
+11. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phases 7-9 run between phases 2 and 3 (7) and after phase 5 (8, 9). The
+Phases 7-9 run between phases 2 and 3 (7, with 10c) and after phase 5 (8,
+9); 10a and 10d run after phase 9, 10b after phase 6. The
 script exits non-zero, printing no result, where CUDA is unavailable or
 outside a checkout of the repository. It never imports jax. Scratch files go
 under ``build/smoke`` (git-ignored) and are removed at the end. It needs
@@ -84,6 +99,12 @@ PROFILE_TOP = 8  # device items listed by the profiled run
 FANIN_N, FANIN_K, FANIN_BGZ = 39, 13, 8  # the reference's 39-genome merge
 FANIN_PAIRS = ((0, 1), (7, 8), (20, 38))  # bgz-bgz, bgz-raw, raw-raw
 CROSSOVER_N = (2, 4, 8, 16, 31)  # merge sizes timed with both engines
+SHARD_MESHES = ((1, 4), (2, 2))  # (data rows, shards) of the sharded K=15 runs
+SHARD_CW = 1 << 22  # windows per row of a sharded step (the sharded default)
+MERGE_SHARDS = 4
+# K=17 shard counts: eight 1 GiB local planes take int32 local codes, four
+# 2 GiB planes (over 2^31 - 1 cells) the int64 launcher
+K17_SHARDS = (8, 4)
 
 
 def log(msg):
@@ -533,18 +554,19 @@ def phase_k17(work, dev, genome):
         raise AssertionError(f"K={k}: num_kmers {meta['num_kmers']} != replay {nk}")
     log(f"replay K={k}: kernel plane == plain plane ({4**k // 2} cells, torch.equal), "
         f"its stats and num_kmers {nk} are the .kin's, vals_max {meta['vals_max']}")
-    return launches_i64, err
+    return launches_i64, err, meta["output_file_cheksum"]
 
 
-def device_blocks(n, k):
+def device_blocks(n, k, n_shards=1):
     """Blocks of the device engine for ``n`` samples at ``k`` with the
     default block size (the engine's own clamp and alignment)."""
     from pykmer_tpu.config import DEFAULT_BLOCK_SIZE
     from pykmer_tpu_torch.merge.merger import _aligned_block
     from pykmer_tpu_torch.ops.compare import padded_rows
 
-    clamp = (2 << 30) // padded_rows(n) // 8 * 8
-    block = _aligned_block(min(DEFAULT_BLOCK_SIZE, clamp), 4**k)
+    align = 8 * n_shards
+    clamp = (2 << 30) * n_shards // padded_rows(n) // align * align
+    block = _aligned_block(min(DEFAULT_BLOCK_SIZE, clamp), 4**k, align)
     return block, -(-4**k // block)
 
 
@@ -655,6 +677,7 @@ def phase_merge_fanin(work, dev):
     kins = sorted(kins)
     matrix, walls = merge_both(work, "fanin", kins, dev, k)
     check_pairs(matrix, kins, FANIN_PAIRS, k)
+    phase_merge_sharded(work, dev, kins, k, matrix)
     streamed = FANIN_N * 4**k
     log(f"merge fan-in N={FANIN_N} K={k}: device engine {walls['device']:.3f} s, host "
         f"engine {walls['host']:.3f} s ({device_blocks(FANIN_N, k)[1]} device blocks); "
@@ -674,6 +697,38 @@ def phase_merge_fanin(work, dev):
             f"device {got['device']} s")
     shutil.rmtree(d)
     return step_ms
+
+
+def phase_merge_sharded(work, dev, kins, k, want):
+    """Phase 10c: the fan-in through ``merge(..., n_shards=4, mesh=...)`` with
+    the 4 logical shards on the card: the single-device engine's matrix,
+    four block steps per block."""
+    import numpy as np
+
+    from pykmer_tpu.formats.kma import read_kma
+    from pykmer_tpu_torch.merge import merge
+    from pykmer_tpu_torch.ops import compare
+    from pykmer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=[dev] * MERGE_SHARDS)
+    proj = os.path.join(work, "fanin_sharded")
+    compare.STEPS = 0
+    t0 = time.perf_counter()
+    _, matrix = merge(proj, kins, n_shards=MERGE_SHARDS, mesh=mesh, verbose=False,
+                      device=dev)
+    wall = time.perf_counter() - t0
+    steps = compare.STEPS
+    block, n_blocks = device_blocks(len(kins), k, MERGE_SHARDS)
+    if steps != MERGE_SHARDS * n_blocks:
+        raise AssertionError(f"sharded merge: {steps} block steps for {n_blocks} blocks")
+    kma = proj + ".001-255.kma"
+    if not (np.array_equal(matrix, want) and np.array_equal(read_kma(kma), want)):
+        raise AssertionError("sharded merge: the .kma differs from the single-device engine's")
+    os.remove(kma)
+    os.remove(kma + ".json")
+    log(f"sharded merge N={len(kins)} K={k}, {MERGE_SHARDS} shards on {dev}: {wall:.3f} s, "
+        f"{n_blocks} blocks of {block} cells, {steps} block steps; .kma equal to the "
+        f"single-device engine's")
 
 
 def perturb(kin, out, dev):
@@ -836,6 +891,216 @@ def profiled_run(dev, genome, total_bp):
         log(f"  device {tot / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
 
 
+class _Stop(Exception):
+    """Raised by the checkpoint hook to cut a sharded run after a save."""
+
+
+def sharded_frames(genome, k, cw):
+    """The genome decoded whole and framed as the sharded index frames it:
+    (padded stream, number of chunks)."""
+    from pykmer_tpu.io.fasta import open_input_bytes
+    from pykmer_tpu_torch.host.chunks import chunk_stream
+    from pykmer_tpu_torch.host.decode import decode_joined_bytes
+
+    stream, _, _ = decode_joined_bytes(open_input_bytes(genome), k, tail_headroom=cw + k)
+    return chunk_stream(stream, k, cw)
+
+
+def run_sharded(genome, k, mesh, label, total_bp, want_sha, n_chunks, **kw):
+    """``create_fasta_index_sharded`` over ``mesh`` with verify on and the
+    stage table on: the `.kin` sha256 must be ``want_sha`` and the sweep
+    launched (R·S)^2 times per step it ran. Returns (wall s, launches)."""
+    import torch
+
+    from pykmer_tpu_torch.index import create_fasta_index_sharded
+    from pykmer_tpu_torch.ops import sweep
+
+    rows = len(mesh.devices) * len(mesh.devices[0])
+    n_steps = -(-n_chunks // rows)
+    first = kw.pop("first_step", 0)
+    os.environ["PYKMER_TPU_STAGE_TIMING"] = "1"
+    err = io.StringIO()
+    sweep.LAUNCHES = sweep.LAUNCHES_I64 = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            create_fasta_index_sharded(genome, "s", genome, k, mesh=mesh, verbose=False, **kw)
+    finally:
+        os.environ.pop("PYKMER_TPU_STAGE_TIMING")
+    wall = time.perf_counter() - t0
+    launches, launches_i64 = sweep.LAUNCHES, sweep.LAUNCHES_I64
+    peak = torch.cuda.max_memory_allocated(mesh.first)
+    meta = take_outputs(genome + f".{k:02d}.kin")
+    log(err.getvalue().rstrip())
+    log(f"sharded index K={k}, {label}: {total_bp} bp in {wall:.3f} s = "
+        f"{total_bp / wall:.0f} bp/s (verify on), {n_steps - first} steps of {rows} rows "
+        f"x {SHARD_CW} windows, {launches} sweep launches ({launches_i64} int64), peak "
+        f"device memory {peak} bytes, output sha256 {meta['output_file_cheksum']}")
+    if meta["output_file_cheksum"] != want_sha:
+        raise AssertionError(f"sharded K={k} {label}: .kin sha256 differs from the "
+                             f"single-device run's")
+    if launches != (n_steps - first) * rows * rows:
+        raise AssertionError(f"sharded K={k} {label}: {launches} sweep launches, expected "
+                             f"{(n_steps - first) * rows * rows}")
+    return wall, launches
+
+
+def sharded_step_times(dev, mesh_shape, rows_np):
+    """One K=15 step on a mesh of logical shards on ``dev``: median device ms
+    (CUDA events) of the whole step, one position's bucket (encode, key,
+    sort, gather), the exchange, and shard 0's received rows applied by one
+    sweep launch per row, by the plain sweep per row, and by one re-sort and
+    one launch (the three planes checked equal)."""
+    import torch
+
+    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted, sort_codes_fast
+    from pykmer_tpu_torch.parallel import histogram, make_mesh
+
+    n_data, n_shards = mesh_shape
+    mesh = make_mesh(n_shards, n_data, devices=[dev] * (n_data * n_shards))
+    init, step = histogram.make_sharded_accumulate(mesh, SLICE_K, SHARD_CW)
+    state = init()
+    bases, mask = (torch.from_numpy(a[0]).to(dev) for a in rows_np)
+    sends = [[step.bucket(bases, mask)[0] for _ in row] for row in mesh.devices]
+    received = step.exchange(sends)[0][0]
+    rows = list(received)
+    planes = [torch.zeros(step.local_size, dtype=torch.uint8, device=dev) for _ in range(3)]
+    for row in rows:
+        sweep.accumulate_sorted(planes[0], row)
+        saturating_accumulate_sorted(planes[1], row)
+    sweep.accumulate_sorted(planes[2], sort_codes_fast(received.reshape(-1)))
+    torch.cuda.synchronize()
+    if not (torch.equal(planes[0], planes[1]) and torch.equal(planes[0], planes[2])):
+        raise AssertionError(f"mesh {mesh_shape}: per-row, plain and re-sorted sweeps differ")
+    times = {
+        "mesh": f"{n_data}x{n_shards}",
+        "rows": len(rows), "capacity": step.capacity,
+        "step_ms": median_ms(lambda: step(state, rows_np), 5),
+        "bucket_ms": median_ms(lambda: step.bucket(bases, mask), 10),
+        "exchange_ms": median_ms(lambda: step.exchange(sends), 10),
+        "rows_kernel_ms": median_ms(lambda: [sweep.accumulate_sorted(planes[0], r)
+                                             for r in rows], 10),
+        "rows_plain_ms": median_ms(lambda: [saturating_accumulate_sorted(planes[1], r)
+                                            for r in rows], 5),
+        "resort_kernel_ms": median_ms(lambda: sweep.accumulate_sorted(
+            planes[2], sort_codes_fast(received.reshape(-1))), 10),
+    }
+    times["rows_kernel_ms_2"] = median_ms(
+        lambda: [sweep.accumulate_sorted(planes[0], r) for r in rows], 10)
+    log("sharded step, median device ms: " + json.dumps(times))
+    del state, planes, sends, received, rows, bases, mask
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_sharded_k15(work, dev, genome, total_bp, want_sha):
+    """Phase 10a: the genome at K=15 over 1x4 and 2x2 meshes of logical
+    shards on the card, a checkpointed run cut and resumed, and the CLI's
+    ``index --shards <card count>``; every `.kin` sha256 phase 4's."""
+    import torch
+
+    from pykmer_tpu_torch.index import sharded as sharded_mod
+    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.parallel import histogram, make_mesh, multihost
+
+    k = SLICE_K
+    padded, n_chunks = sharded_frames(genome, k, SHARD_CW)
+    results = {}
+    for n_data, n_shards in SHARD_MESHES:
+        mesh = make_mesh(n_shards, n_data, devices=[dev] * (n_data * n_shards))
+        label = f"mesh {n_data}x{n_shards} on {dev}"
+        results[label] = run_sharded(genome, k, mesh, label, total_bp, want_sha, n_chunks)
+
+    mesh = make_mesh(4, devices=[dev] * 4)
+    real_save, saves = multihost.save_shard_checkpoint, []
+
+    def save_then_stop(*args, **kwargs):
+        real_save(*args, **kwargs)
+        saves.append(kwargs["next_step"])
+        if len(saves) == 2:
+            raise _Stop()
+
+    sharded_mod.multihost.save_shard_checkpoint = save_then_stop
+    t0 = time.perf_counter()
+    try:
+        sharded_mod.create_fasta_index_sharded(genome, "s", genome, k, mesh=mesh,
+                                               checkpoint_every=1, verbose=False)
+        raise AssertionError("the checkpointed run was not cut at its second save")
+    except _Stop:
+        pass
+    finally:
+        sharded_mod.multihost.save_shard_checkpoint = real_save
+    log(f"sharded index K={k}, checkpoint every step: cut after the saves at steps "
+        f"{saves} in {time.perf_counter() - t0:.3f} s")
+    tmp = genome + f".{k:02d}.kin.tmp"
+    results["resumed"] = run_sharded(genome, k, mesh, "resumed at step 2, mesh 1x4",
+                                     total_bp, want_sha, n_chunks, first_step=saves[-1])
+    if multihost.load_shard_checkpoint(tmp) is not None:
+        raise AssertionError("the resumed run left its checkpoint behind")
+
+    n_cards = torch.cuda.device_count()
+    sweep.LAUNCHES = 0
+    wall, table = run_cli(["index", genome, "s", str(k), "--shards", str(n_cards),
+                           "--device", str(dev), "--quiet"])
+    launches = sweep.LAUNCHES
+    meta = take_outputs(genome + f".{k:02d}.kin")
+    log(table)
+    steps = -(-n_chunks // n_cards)
+    log(f"sharded index K={k} via the CLI, --shards {n_cards}: {total_bp} bp in "
+        f"{wall:.3f} s = {total_bp / wall:.0f} bp/s (verify on), {launches} sweep launches")
+    if meta["output_file_cheksum"] != want_sha or launches != steps * n_cards**2:
+        raise AssertionError(f"CLI --shards {n_cards}: sha256 or {launches} launches off")
+
+    rows = histogram.shard_batch_chunks_packed(padded, k, SHARD_CW, 4, n_chunks // 8)
+    del padded
+    times = [sharded_step_times(dev, shape, rows) for shape in SHARD_MESHES]
+    return results, times, rows
+
+
+def phase_sharded_vs_cpu(dev, rows):
+    """Phase 10d: one K=15 step (4 rows of 2^22 windows) on ``[cuda:0] * 4``
+    and on ``[cpu] * 4``: torch.equal shards, num_valid and max_bucket."""
+    import torch
+
+    from pykmer_tpu_torch.parallel import histogram, make_mesh
+
+    out = []
+    for mesh in (make_mesh(devices=[dev] * 4), make_mesh(4, device="cpu")):
+        init, step = histogram.make_sharded_accumulate(mesh, SLICE_K, SHARD_CW)
+        t0 = time.perf_counter()
+        planes, nk, maxb = step(init(), rows)
+        out.append(([p.cpu() for p in planes[0]], int(nk), int(maxb)))
+        log(f"sharded step on {mesh.first} x4: {time.perf_counter() - t0:.3f} s wall, "
+            f"num_valid {int(nk)}, max_bucket {int(maxb)} (capacity {step.capacity})")
+    if out[0][1:] != out[1][1:] or not all(
+            torch.equal(a, b) for a, b in zip(out[0][0], out[1][0])):
+        raise AssertionError("the sharded step on the card differs from the CPU mesh's")
+    err = max(max_abs_err(a, b) for a, b in zip(out[0][0], out[1][0]))
+    log(f"sharded step: the card's 4 shards torch.equal to the CPU mesh's, "
+        f"num_valid and max_bucket equal (max abs err {err})")
+    return err
+
+
+def phase_sharded_k17(dev, genome, total_bp, want_sha):
+    """Phase 10b: the genome at K=17 over 8 logical shards on the card (eight
+    1 GiB planes, int32 local codes), then over 4 (2 GiB planes, int64 local
+    codes); each `.kin` sha256 phase 6's."""
+    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.parallel import make_mesh
+
+    k = BIG_K
+    _, n_chunks = sharded_frames(genome, k, SHARD_CW)
+    for n_shards in K17_SHARDS:
+        mesh = make_mesh(devices=[dev] * n_shards)
+        _, launches = run_sharded(genome, k, mesh, f"mesh 1x{n_shards} on {dev}",
+                                  total_bp, want_sha, n_chunks)
+        want_i64 = launches if 4**k // 2 // n_shards > 2**31 - 1 else 0
+        if sweep.LAUNCHES_I64 != want_i64:
+            raise AssertionError(f"K={k} over {n_shards} shards: {sweep.LAUNCHES_I64} int64 "
+                                 f"launches of {launches}, expected {want_i64}")
+
+
 def main():
     sys.modules["jax"] = None  # any jax import below fails loudly
     try:
@@ -878,16 +1143,26 @@ def main():
         num_kmers = json.load(open(genome + f".{SLICE_K:02d}.kin.json"))["num_kmers"]
         phase_merge_pair(work, dev, genome)  # removes the K=15 .kin
         phase_serve(work, dev, genome, gz, sha, num_kmers)
+        sharded, step_times, rows = phase_sharded_k15(work, dev, genome, total_bp, sha)
+        sharded_err = phase_sharded_vs_cpu(dev, rows)
+        del rows
         phase_k17_oracle(work, dev, small_fa)
-        launches_i64, replay_err = phase_k17(work, dev, genome)
+        launches_i64, replay_err, k17_sha = phase_k17(work, dev, genome)
+        phase_sharded_k17(dev, genome, total_bp, k17_sha)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
+    rows_1x4 = step_times[0]
     for name, n, (err, ms, plain_ms) in (
             ("sweep_sorted", launches, k15_sweep),
             ("sweep_sorted_i64", launches_i64,
-             (max(k17_sweep[0], replay_err), k17_sweep[1], k17_sweep[2]))):
+             (max(k17_sweep[0], replay_err), k17_sweep[1], k17_sweep[2])),
+            # the sharded path's launches (the 1x4 run); times: one shard's 4
+            # received rows of one step, one launch each, kernel vs plain
+            ("sweep_sorted_sharded_rows", sharded[f"mesh 1x4 on {dev}"][1],
+             (sharded_err, min(rows_1x4["rows_kernel_ms"], rows_1x4["rows_kernel_ms_2"]),
+              rows_1x4["rows_plain_ms"]))):
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -16,20 +16,27 @@ Layout
 - ``ops``     : device programs — encode, sort, the saturating sweep kernel
                 and its plain version, the chased readback tail, the merge's
                 per-block V·Vᵀ step
-- ``state``   : folded-plane exchange with numpy (and the JAX package)
-- ``index``   : the single-GPU indexer, batch indexing, index verification
-- ``merge``   : the N×N merge (host popcount and device engines) → `.kma`
+- ``state``   : folded-plane and ``[S, local]`` shard exchange with numpy
+                (and the JAX package)
+- ``parallel``: multi-device runs in one process — the device mesh, the
+                collectives as explicit copies, the count-space-sharded step,
+                the sharded merge step, shard checkpoints
+- ``index``   : the single-GPU indexer, the sharded indexer (checkpoints and
+                resume), batch indexing, index verification
+- ``merge``   : the N×N merge (host popcount and device engines, the device
+                engine optionally sharded) → `.kma`
 - ``serve``   : the JSON-lines service over index, merge and distance
 - ``cli``     : ``python -m pykmer_tpu_torch <subcommand>``
 - ``csrc``    : CUDA C++ kernel sources, built at first use
 
 State the two packages share is on disk: the `.kin` and `.kma` files, both
-read and written through ``pykmer_tpu.formats``. The merge's only device
-state, its int64 accumulator, comes back as a numpy array as the JAX
-engine's does, so no conversion function is needed beyond ``state``'s.
+read and written through ``pykmer_tpu.formats``, and the sharded index's
+checkpoints (the same ``[S, local]`` array and ``state.json``). The merge's
+only device state, its int64 accumulator, comes back as a numpy array as the
+JAX engine's does, so no conversion function is needed beyond ``state``'s.
 
-Every public function takes an explicit ``device``; nothing falls back to
-the CPU when CUDA is missing.
+Every public function takes an explicit ``device`` or ``mesh``; nothing
+falls back to the CPU when CUDA is missing.
 """
 
 from __future__ import annotations
@@ -42,12 +49,15 @@ __version__ = "0.1.0"
 
 
 def require_cuda() -> None:
-    """Raise unless a CUDA device is usable."""
+    """Raise unless a CUDA device is usable; initialise CUDA otherwise."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available (torch.cuda.is_available() is False); "
             "pass device='cpu' explicitly to run the plain torch versions"
         )
+    # the allocator's per-card calls (reset_peak_memory_stats('cuda:n')) do
+    # not initialise CUDA themselves and reject every card before it is
+    torch.cuda.init()
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:

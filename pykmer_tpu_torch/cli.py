@@ -3,6 +3,7 @@
     python -m pykmer_tpu_torch index <input.fa[.gz]|-> <sample_name> <K>
         [--chunk-windows N] [--accumulate auto|device|host] [--bgzip]
         [--no-verify] [--no-overwrite] [--quiet] [--device cuda]
+        [--shards S] [--data-parallel R] [--checkpoint-every N]
     python -m pykmer_tpu_torch index-batch <K> <a.fa> <b.fa> ...
         [--overwrite] [--chunk-windows N] [--accumulate auto|device|host]
         [--bgzip] [--no-verify] [--quiet] [--device cuda]
@@ -10,6 +11,7 @@
     python -m pykmer_tpu_torch merge <Project> <a.kin> <b.kin> ...
         [--min-count N] [--max-count N] [--buffer-size B] [--block-size N]
         [--threads N] [--engine auto|host|device] [--quiet] [--device cuda]
+        [--shards S]
     python -m pykmer_tpu_torch distance <matrix.kma> [names.tsv]
     python -m pykmer_tpu_torch kwip <all.dist> [names.tsv] [--compare-kma X.kma]
     python -m pykmer_tpu_torch gzi <file.gzi>
@@ -19,11 +21,12 @@
 
 The argument names and exit codes are those of ``pykmer_tpu.cli``.
 ``distance``, ``kwip``, ``gzi``, ``testgen`` and ``bgzip`` run the JAX
-package's JAX-free functions. The multi-device flags (``index --shards``,
-``--data-parallel``, ``--checkpoint-every``, ``--coordinator``,
-``--num-processes``, ``--process-id``; ``merge --shards`` above 1) are
-accepted so that they answer "not yet ported" (exit code 2) instead of an
-argparse error.
+package's JAX-free functions. ``index --shards/--data-parallel/
+--checkpoint-every`` runs the sharded index on a mesh of ``--device``'s
+type (on CUDA it needs S·R visible cards), and ``merge --shards`` the
+sharded compare. The multi-host flags (``--coordinator``,
+``--num-processes``, ``--process-id``) are accepted so that they answer "not
+yet ported" (exit code 2) instead of an argparse error.
 """
 
 from __future__ import annotations
@@ -71,10 +74,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also produce .kin.bgz + .gzi")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda", help=DEVICE_HELP)
-    # multi-device and multi-host runs: not yet ported
-    p.add_argument("--shards", type=int, default=None)
-    p.add_argument("--data-parallel", type=int, default=1)
-    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--shards", type=int, default=None,
+                   help="count-space shards (default: the devices per data row)")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="data-parallel rows of the mesh")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="checkpoint the sharded state every N steps")
+    # multi-host runs: not yet ported
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -115,7 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "engine at fan-in scale")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda", help=DEVICE_HELP)
-    p.add_argument("--shards", type=int, default=None)  # not yet ported
+    p.add_argument("--shards", type=int, default=None,
+                   help="shard the device engine's compare over this many devices")
 
     p = sub.add_parser("distance", help="Jaccard distances + NJ tree from .kma")
     p.add_argument("matrix_file")
@@ -165,25 +172,39 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
     if args.command == "index":
-        if args.coordinator or args.num_processes:
-            return _not_ported("multi-host index (--coordinator/--num-processes)")
-        if args.shards or args.data_parallel > 1 or args.checkpoint_every:
-            return _not_ported("sharded index "
-                               "(--shards/--data-parallel/--checkpoint-every)")
+        if args.coordinator or args.num_processes or args.process_id is not None:
+            return _not_ported("multi-host index "
+                               "(--coordinator/--num-processes/--process-id)")
         try:
             cfg = _config(args)
         except ValueError as exc:
             print(f"error: {exc}", file=sys.stderr)
             return 2
-        from .index import create_fasta_index
-
         from_stdin = args.input_file == "-"
-        project = args.sample_name if from_stdin else args.input_file
-        header = create_fasta_index(
-            project, args.sample_name, args.input_file, args.kmer_len,
-            overwrite=not args.no_overwrite, config=cfg,
-            verify=not args.no_verify, verbose=not args.quiet, device=args.device,
-        )
+        if args.shards or args.data_parallel > 1 or args.checkpoint_every:
+            if from_stdin:
+                print("error: stdin input ('-') is not supported with "
+                      "--shards/--data-parallel/--checkpoint-every",
+                      file=sys.stderr)
+                return 2
+            from .index import create_fasta_index_sharded
+
+            header = create_fasta_index_sharded(
+                args.input_file, args.sample_name, args.input_file,
+                args.kmer_len, overwrite=not args.no_overwrite, config=cfg,
+                n_shards=args.shards, n_data=args.data_parallel,
+                checkpoint_every=args.checkpoint_every,
+                verify=not args.no_verify, verbose=not args.quiet, device=args.device,
+            )
+        else:
+            from .index import create_fasta_index
+
+            project = args.sample_name if from_stdin else args.input_file
+            header = create_fasta_index(
+                project, args.sample_name, args.input_file, args.kmer_len,
+                overwrite=not args.no_overwrite, config=cfg,
+                verify=not args.no_verify, verbose=not args.quiet, device=args.device,
+            )
         if args.bgzip:
             from pykmer_tpu.io.bgzf import bgzip_kin
 
@@ -218,15 +239,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         if len(args.Kmers) <= 1:
             print("needs at least 2 files")
             return 1
-        if (args.shards or 0) > 1:
-            return _not_ported("merge over several devices (--shards)")
         from .merge import merge
 
         merge(
             args.Project_Name, sorted(args.Kmers),
             min_count=args.min_count, max_count=args.max_count,
             block_size=args.block_size, threads=args.threads,
-            buffer_size=args.buffer_size, engine=args.engine,
+            buffer_size=args.buffer_size, n_shards=args.shards, engine=args.engine,
             verbose=not args.quiet, device=args.device,
         )
         return 0

@@ -300,7 +300,8 @@ class ChunkUploader:
         done.synchronize()  # the slot's previous copies have landed
         dev_b = self._copy(pin_b, bases2)
         dev_m = None if maskbits is None else self._copy(pin_m, maskbits)
-        done.record()
+        # on the stream of the copies' card, which need not be the current one
+        done.record(torch.cuda.current_stream(self.device))
         return dev_b, dev_m
 
     def _copy(self, pinned: torch.Tensor, arr: np.ndarray) -> torch.Tensor:

@@ -11,7 +11,10 @@ total on the diagonal:
   copied, since it never touched JAX;
 - **device**: the bits of all N samples go to the device in one upload per
   block, and ``ops/compare.block_contingency`` adds the block's V·Vᵀ into an
-  int64 accumulator that stays there (``torch._int_mm`` on CUDA).
+  int64 accumulator that stays there (``torch._int_mm`` on CUDA). With
+  ``n_shards`` S > 1 each block is cut into S contiguous cell slices, one per
+  device of a mesh, and ``parallel/compare.make_sharded_merge_step`` sums
+  the S partials into the accumulator on mesh device 0.
 
 The reader threads pack into pinned staging buffers, and the upload is
 non-blocking, so the next block is read while the card multiplies the
@@ -35,6 +38,8 @@ from pykmer_tpu.formats.header import KinHeader
 
 from .. import resolve_device
 from ..ops.compare import block_contingency, new_workspace, padded_rows
+from ..parallel.compare import make_sharded_merge_step
+from ..parallel.mesh import SHARD_AXIS, Mesh, make_mesh
 
 VALID_INPUT_EXTS = (".kin", ".kin.bgz", ".kma", ".kma.bgz")
 STAGING_SLOTS = 2  # pinned host buffers the block uploads alternate between
@@ -88,17 +93,23 @@ def merge(
     engine: str = "auto",
     verbose: bool = True,
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[List[Dict[str, Any]], np.ndarray]:
     """Build `{project}.{min:03d}-{max:03d}.kma` (+ `.json`) from N indexes.
 
     The arguments are those of ``pykmer_tpu.merge.merge``, plus ``device``
-    ('cuda' or, for tests, 'cpu'), where the device engine runs.
-    ``engine``: "device", "host", or "auto": host when N <=
-    PYKMER_TPU_MERGE_HOST_MAX_N (default 8), as in the JAX package.
-    ``n_shards`` > 1 (the compare sharded over several devices) is not yet
-    ported and raises ``NotImplementedError``.
+    ('cuda' or, for tests, 'cpu'), where the device engine runs, and
+    ``mesh``. ``engine``: "device", "host", or "auto": host when N <=
+    PYKMER_TPU_MERGE_HOST_MAX_N (default 8) and the merge is not sharded, as
+    in the JAX package. ``n_shards`` > 1 shards the device engine's compare
+    over ``mesh`` (default ``make_mesh(n_shards, device=device)``: on CUDA
+    that many visible cards); a given ``mesh`` sets ``n_shards`` itself.
     """
     device = resolve_device(device)
+    if mesh is not None:
+        if n_shards is not None and n_shards != mesh.shape[SHARD_AXIS]:
+            raise ValueError(f"n_shards {n_shards} != the mesh's {mesh.shape[SHARD_AXIS]}")
+        n_shards = mesh.shape[SHARD_AXIS]
     if not (1 <= min_count and max_count <= 255):
         raise ValueError("count bounds must satisfy 1 <= min and max <= 255")
     if block_size <= 0 or len(indexes) == 0:
@@ -121,14 +132,12 @@ def merge(
 
     if engine not in ("auto", "host", "device"):
         raise ValueError(f"engine must be auto|host|device, got {engine!r}")
-    if (n_shards or 0) > 1:
-        raise NotImplementedError(
-            "a merge sharded over several devices (n_shards > 1) is not yet "
-            "ported to pykmer_tpu_torch"
-        )
+    sharded = (n_shards or 0) > 1
     if engine == "auto":
         host_max_n = int(os.environ.get("PYKMER_TPU_MERGE_HOST_MAX_N", "8"))
-        engine = "host" if n <= host_max_n else "device"
+        engine = "host" if n <= host_max_n and not sharded else "device"
+    if engine == "host" and sharded:
+        raise ValueError("--shards requires the device engine")
 
     paths = [d["index_file"] for d in data]
     if engine == "host":
@@ -137,10 +146,12 @@ def merge(
             threads=threads, verbose=verbose, buffer_size=buffer_size,
         )
     else:
+        if sharded and mesh is None:
+            mesh = make_mesh(n_shards=n_shards, device=device)
         shared = _pairwise_matrix_device(
             paths, data_size, min_count, max_count, block_size=block_size,
             threads=threads, verbose=verbose, buffer_size=buffer_size,
-            device=device,
+            device=device, mesh=mesh if sharded else None,
         )
 
     # matrix[k,l] = (k_count, l_count, shared): totals live on the diagonal
@@ -358,21 +369,24 @@ def _pairwise_matrix_host(
 
 class _BitStaging:
     """Host buffers for one block's [n, block/8] validity bits, and their
-    upload.
+    upload to one device per shard: shard s of S takes the contiguous byte
+    slice ``[s·w, (s+1)·w)`` of every row, w = block/8/S.
 
     On CUDA the reader threads pack into one of ``STAGING_SLOTS`` pinned
-    buffers, which is copied with ``non_blocking=True`` on the current
-    stream; an event recorded after the copy guards the slot, which is
-    refilled only once that event has completed. On the CPU one buffer is
-    wrapped without a copy (the CPU block step runs before the next fill)."""
+    buffers, which is copied with ``non_blocking=True`` on each shard
+    device's current stream (one copy, or one per row when S > 1); an event
+    per shard recorded after its copies guards the slot, which is refilled
+    only once those events have completed. On the CPU one buffer is cut
+    without a copy (the CPU block step runs before the next fill)."""
 
-    def __init__(self, n: int, n_bytes: int, device: torch.device):
-        self.device = device
+    def __init__(self, n: int, n_bytes: int, devices: List[torch.device]):
+        self.devices = devices
+        self.width = n_bytes // len(devices)
         self.next = 0
-        if device.type == "cuda":
+        if devices[0].type == "cuda":
             self.slots = [
                 (torch.empty((n, n_bytes), dtype=torch.uint8, pin_memory=True),
-                 torch.cuda.Event())
+                 [torch.cuda.Event() for _ in devices])
                 for _ in range(STAGING_SLOTS)
             ]
         else:
@@ -381,20 +395,31 @@ class _BitStaging:
     def acquire(self) -> np.ndarray:
         """The next slot, free to fill, as a numpy array."""
         host, done = self.slots[self.next]
-        if done is not None:
-            done.synchronize()  # the slot's previous copy has landed
+        for ev in done or ():
+            ev.synchronize()  # the slot's previous copies have landed
         return host.numpy()
 
-    def upload(self) -> torch.Tensor:
-        """The slot just filled, on the device; moves on to the next slot."""
+    def upload(self) -> List[torch.Tensor]:
+        """The slot just filled, one [n, w] slice on each shard's device;
+        moves on to the next slot."""
         host, done = self.slots[self.next]
         self.next = (self.next + 1) % len(self.slots)
+        w = self.width
         if done is None:
-            return host
-        dev = torch.empty(host.shape, dtype=torch.uint8, device=self.device)
-        dev.copy_(host, non_blocking=True)
-        done.record()
-        return dev
+            return [host[:, s * w : (s + 1) * w].contiguous()
+                    for s in range(len(self.devices))]
+        out = []
+        for s, (dev, ev) in enumerate(zip(self.devices, done)):
+            src = host[:, s * w : (s + 1) * w]
+            dst = torch.empty(src.shape, dtype=torch.uint8, device=dev)
+            if src.is_contiguous():
+                dst.copy_(src, non_blocking=True)
+            else:  # each row's slice is contiguous in the pinned buffer
+                for i in range(src.shape[0]):
+                    dst[i].copy_(src[i], non_blocking=True)
+            ev.record(torch.cuda.current_stream(dev))
+            out.append(dst)
+        return out
 
 
 def _pairwise_matrix_device(
@@ -407,12 +432,17 @@ def _pairwise_matrix_device(
     verbose: bool,
     buffer_size: Optional[int] = None,
     device: torch.device = torch.device("cuda"),
+    mesh: Optional[Mesh] = None,
 ) -> np.ndarray:
-    """Shared-count N×N matrix on ``device``; each file streamed exactly
-    once. The accumulator stays on the device and is read once at the end."""
+    """Shared-count N×N matrix on ``device``, or, with a ``mesh``, on mesh
+    device 0 with the block's cells sharded over the mesh's devices; each
+    file streamed exactly once. The accumulator stays on the device and is
+    read once at the end."""
     n = len(paths)
-    align = 8
-    # clamp the block so the device working set stays inside a budget: the
+    devices = [device] if mesh is None else mesh.devices[0]
+    n_shards = len(devices)
+    align = 8 * n_shards  # the bits split into whole bytes per shard
+    # clamp the block so each shard's working set stays inside a budget: its
     # unpacked validity matrix V, zero rows included, one byte per cell and
     # row (beside it the 8x smaller bits upload and the n^2 accumulator) — a
     # large-N merge with the default 100M block would otherwise run out of
@@ -420,13 +450,13 @@ def _pairwise_matrix_device(
     hbm_budget = int(os.environ.get("PYKMER_TPU_MERGE_HBM_BYTES",
                                     str(2 << 30)))
     rows = padded_rows(n)
-    max_block = max(4 * align, hbm_budget // rows // align * align)
+    max_block = max(4 * align, hbm_budget * n_shards // rows // align * align)
     if block_size > max_block:
         if verbose:
             print(
                 f"  clamping block_size {block_size:,} -> {max_block:,} "
                 f"(N={n}: {rows} unpacked planes, zero padding included, within "
-                f"the {hbm_budget:,}-byte HBM budget; override via "
+                f"the {hbm_budget:,}-byte HBM budget per shard; override via "
                 f"PYKMER_TPU_MERGE_HBM_BYTES)"
             )
         block_size = max_block
@@ -434,9 +464,15 @@ def _pairwise_matrix_device(
     n_bytes = block_size // 8
     pack = _validity_ops(min_count, max_count)[0]
 
-    staging = _BitStaging(n, n_bytes, device)
-    acc = torch.zeros((n, n), dtype=torch.int64, device=device)
-    v = new_workspace(n, block_size, device)
+    staging = _BitStaging(n, n_bytes, devices)
+    acc = torch.zeros((n, n), dtype=torch.int64, device=devices[0])
+    if mesh is not None:
+        step = make_sharded_merge_step(mesh, n)
+    else:
+        v = new_workspace(n, block_size, devices[0])
+
+        def step(acc: torch.Tensor, bits: List[torch.Tensor]) -> torch.Tensor:
+            return block_contingency(acc, bits[0], v)
     with _InputStreams(paths, block_size, buffer_size) as streams, \
             ThreadPoolExecutor(max_workers=max(1, threads)) as pool:
         done = 0
@@ -452,13 +488,14 @@ def _pairwise_matrix_device(
                 host[i, packed.shape[0]:] = 0
 
             list(pool.map(read_pack, range(n)))
-            block_contingency(acc, staging.upload(), v)
+            step(acc, staging.upload())
             done += want
             if verbose:
                 _progress(done, data_size)
     assert done == data_size
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for dev in set(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return acc.cpu().numpy()
 
 

@@ -7,6 +7,13 @@ the `.kin` and advances the output sha256 behind the unfold. So the copy, the
 unfold, the write and the hash overlap, and host memory holds the 4^K output
 plus two slices, never a second whole-plane copy.
 
+The plane may also come as the S local planes of a sharded run
+(``parallel/histogram.py``): folded cell w is ``shards[w % S][w // S]``, so
+each output slice [a, b) (a, b multiples of S) is assembled as
+``stack(shard[a/S : b/S] for shard in shards, dim=1).reshape(-1)`` on the
+first shard's device. No device and no host buffer ever holds the whole flat
+plane beyond the 4^K output.
+
 Port of the raw path of ``pykmer_tpu/ops/readback.py`` (``_ChaseSink``,
 ``unfold_range``, ``stream_dense_to_out``). The JAX package's packed, sparse
 and escape readback modes exist for a slow host link and are not ported.
@@ -17,7 +24,7 @@ from __future__ import annotations
 import hashlib
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -169,14 +176,33 @@ def _slice_bounds(half: int, slice_cells: int) -> List[Tuple[int, int]]:
     return [(lo, min(half, lo + slice_cells)) for lo in range(0, half, slice_cells)]
 
 
+def _interleaved(shards: Sequence[torch.Tensor]) -> Callable[[int, int], torch.Tensor]:
+    """Folded cells [lo, hi) of a sharded plane (lo, hi multiples of S),
+    assembled on the first shard's device."""
+    # imported here: the parallel package imports the indexer, which imports
+    # this module
+    from ..parallel.collectives import move
+
+    s = len(shards)
+    dev = shards[0].device
+
+    def view(lo: int, hi: int) -> torch.Tensor:
+        if lo % s or hi % s:
+            raise ValueError(f"slice [{lo}, {hi}) does not split over {s} shards")
+        parts = [move(p[lo // s : hi // s], dev) for p in shards]
+        return torch.stack(parts, dim=1).reshape(-1)
+
+    return view
+
+
 def _cuda_slices(
-    plane: torch.Tensor, bounds: List[Tuple[int, int]]
+    view: Callable[[int, int], torch.Tensor], dev: torch.device,
+    bounds: List[Tuple[int, int]]
 ) -> Iterator[np.ndarray]:
-    """Host copies of ``plane[lo:hi]`` for each bound, in order: two pinned
-    buffers that alternate, filled on a side stream, so slice i+1 is in
-    flight while the caller unfolds slice i. A buffer is refilled only after
-    the caller has asked for the next slice, i.e. finished with it."""
-    dev = plane.device
+    """Host copies of ``view(lo, hi)`` for each bound, in order: two pinned
+    buffers that alternate, filled on a side stream of ``dev``, so slice i+1
+    is in flight while the caller unfolds slice i. A buffer is refilled only
+    after the caller has asked for the next slice, i.e. finished with it."""
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))  # the plane is final
     width = max(hi - lo for lo, hi in bounds)
@@ -186,7 +212,7 @@ def _cuda_slices(
     def enqueue(i: int) -> None:
         lo, hi = bounds[i]
         with torch.cuda.stream(side):
-            bufs[i % 2][: hi - lo].copy_(plane[lo:hi], non_blocking=True)
+            bufs[i % 2][: hi - lo].copy_(view(lo, hi), non_blocking=True)
             ready[i % 2].record(side)
 
     try:
@@ -201,7 +227,7 @@ def _cuda_slices(
 
 
 def stream_plane_to_out(
-    plane: torch.Tensor,
+    plane: Union[torch.Tensor, Sequence[torch.Tensor]],
     kmer_len: int,
     out: np.ndarray,
     fd=None,
@@ -212,24 +238,32 @@ def stream_plane_to_out(
     back slice by slice, unfold it into ``out`` (uint8[4^K]), write ``out``
     to ``fd`` (optional) and hash it, each chasing the one before.
 
-    Returns (256-bin counts of the folded plane as int64[256], sha256 hex of
-    ``out``), as ``stream_dense_to_out(..., hash_out=True)`` does. A CPU
-    plane is read in place. ``stages`` receives two entries: the slice loop
-    ("copy + unfold") and what remains after it ("write + hash drain": the
-    writes and hashes still queued, then the mirror half's hash)."""
-    half = plane.shape[0]
-    if plane.dtype != torch.uint8 or plane.dim() != 1 or not plane.is_contiguous():
-        raise ValueError("plane must be a contiguous 1-D uint8 tensor")
+    ``plane`` may instead be the S local planes (uint8[4^K/2/S] each, S a
+    power of two, on one device type) of a sharded run, read as their
+    interleave. Returns (256-bin counts of the folded plane as int64[256],
+    sha256 hex of ``out``), as ``stream_dense_to_out(..., hash_out=True)``
+    does. A CPU plane is read in place. ``stages`` receives two entries: the
+    slice loop ("copy + unfold") and what remains after it ("write + hash
+    drain": the writes and hashes still queued, then the mirror half's
+    hash)."""
+    shards = [plane] if isinstance(plane, torch.Tensor) else list(plane)
+    for p in shards:
+        if p.dtype != torch.uint8 or p.dim() != 1 or not p.is_contiguous():
+            raise ValueError("plane must be a contiguous 1-D uint8 tensor")
+    half = sum(p.shape[0] for p in shards)
+    if len({p.shape[0] for p in shards}) != 1 or len({p.device.type for p in shards}) != 1:
+        raise ValueError("shards must be equal in size and on one device type")
     if 2 * half != 4**kmer_len or out.shape[0] != 2 * half or out.dtype != np.uint8:
         raise ValueError(f"need a 4^{kmer_len}/2-cell plane and a uint8[4^{kmer_len}] out")
     bounds = _slice_bounds(half, slice_cells)
-    if plane.device.type == "cpu":
-        host = plane.numpy()
-        slices = (host[lo:hi] for lo, hi in bounds)
-    elif plane.device.type == "cuda":
-        slices = _cuda_slices(plane, bounds)
+    view = (lambda lo, hi: shards[0][lo:hi]) if len(shards) == 1 else _interleaved(shards)
+    dev = shards[0].device
+    if dev.type == "cpu":
+        slices = (view(lo, hi).numpy() for lo, hi in bounds)
+    elif dev.type == "cuda":
+        slices = _cuda_slices(view, dev, bounds)
     else:
-        raise ValueError(f"no readback from device {plane.device}")
+        raise ValueError(f"no readback from device {dev}")
 
     stages = stages or StageTimer()
     counts = np.zeros(256, dtype=np.int64)

@@ -9,7 +9,8 @@ JSON response per line on stdout (stderr carries logs), in request order.
    "kmer_len": 15, "bgzip": false, "verify": true}   -> index one FASTA
   {"cmd": "merge", "project": "proj",
    "indexes": ["a.15.kin", ...], "min_count": 1,
-   "max_count": 255}                                 -> build the .kma
+   "max_count": 255, "n_shards": 2}                  -> build the .kma
+                                                        (n_shards optional)
   {"cmd": "distance", "matrix_file": "proj...kma"}   -> analysis tail
   {"cmd": "shutdown"}                                -> exit 0
 

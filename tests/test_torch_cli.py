@@ -85,9 +85,10 @@ def test_cli_merge_needs_two_and_shards(kins, capsys):
         ["merge", "p", kins[0]], capsys)
     assert rc_j == rc_t == 1 and files_j == files_t == {}
     assert out_j == out_t == "needs at least 2 files\n"
-    assert tcli.main(["merge", "p", *kins, "--shards", "2", "--device", "cpu"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
-    assert not os.path.exists("p.001-255.kma")
+    (rc_j, files_j, _), (rc_t, files_t, _) = _cli_both(
+        ["merge", "p", *kins, "--shards", "2", "--quiet"], capsys)
+    assert rc_j == rc_t == 0
+    assert files_t == files_j and "p.001-255.kma" in files_t
 
 
 def test_cli_distance_matches_jax(kins, capsys):

@@ -194,3 +194,140 @@ def test_serve_warmup_on_card(cuda):
     assert warmup(17, cuda) > 0
     assert sweep.LAUNCHES == sweep.LAUNCHES_I64 == 2
     assert torch.cuda.max_memory_allocated() < 4**17 // 2
+
+
+def _sharded_run(mesh, seq, k, cw):
+    from pykmer_tpu_torch.host.chunks import chunk_stream
+    from pykmer_tpu_torch.parallel import histogram
+
+    init, step = histogram.make_sharded_accumulate(mesh, k, cw)
+    pad, n_chunks = chunk_stream(seq.copy(), k, cw)
+    state = init()
+    n_steps = -(-n_chunks // step.rows)
+    for s in range(n_steps):
+        state = step(state, histogram.shard_batch_chunks_packed(pad, k, cw, step.rows, s))
+    planes, nk, maxb = state
+    return [[p.cpu() for p in row] for row in planes], int(nk), int(maxb), n_steps
+
+
+@pytest.mark.parametrize("n_data,n_shards", [(1, 4), (2, 2)])
+def test_sharded_accumulate_cuda_matches_cpu(cuda, n_data, n_shards):
+    """The sharded step on logical shards of one card equals the CPU mesh's:
+    planes (every replica), num_valid and max_bucket; the sweep launches
+    once per received row, (R·S)^2 times per step."""
+    from pykmer_tpu_torch.parallel import make_mesh
+
+    seq = np.random.default_rng(7).integers(0, 5, size=60_000).astype(np.uint8)
+    seq[:3000] = 1  # a saturating run
+    cpu = _sharded_run(make_mesh(n_shards, n_data, device="cpu"), seq, 9, 2048)
+    sweep.LAUNCHES = 0
+    card = _sharded_run(make_mesh(n_shards, n_data, devices=[cuda] * (n_shards * n_data)),
+                        seq, 9, 2048)
+    torch.cuda.synchronize()
+    assert sweep.LAUNCHES == card[3] * (n_shards * n_data) ** 2
+    assert card[1:] == cpu[1:]
+    for r in range(n_data):
+        for s in range(n_shards):
+            assert torch.equal(card[0][r][s], cpu[0][r][s])
+
+
+def test_sharded_merge_step_cuda_matches_cpu(cuda):
+    from pykmer_tpu_torch.ops import compare
+    from pykmer_tpu_torch.parallel import compare as pcompare
+    from pykmer_tpu_torch.parallel import make_mesh
+
+    n = 7
+    rng = np.random.default_rng(8)
+    blocks = [rng.integers(0, 256, size=(n, 4 * 25_000), dtype=np.uint8) for _ in range(2)]
+    accs = []
+    for mesh in (make_mesh(4, device="cpu"), make_mesh(devices=[cuda] * 4)):
+        step = pcompare.make_sharded_merge_step(mesh, n)
+        acc = torch.zeros((n, n), dtype=torch.int64, device=mesh.first)
+        compare.STEPS = 0
+        for bits in blocks:
+            step(acc, pcompare.shard_bits(bits, mesh))
+        assert compare.STEPS == (8 if mesh.first.type == "cuda" else 0)
+        accs.append(acc.cpu())
+    assert torch.equal(accs[0], accs[1])
+
+
+def test_sharded_index_cuda_matches_cpu(cuda, tmp_path):
+    from pykmer_tpu_torch.index import create_fasta_index_sharded
+    from pykmer_tpu_torch.parallel import make_mesh
+
+    fasta = _genome(str(tmp_path / "sh.fa"), np.random.default_rng(9), n_records=4)
+    cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 14)
+    want = _kin(create_fasta_index(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                   device="cpu"))
+    sweep.LAUNCHES = 0
+    got = _kin(create_fasta_index_sharded(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                          mesh=make_mesh(4, devices=[cuda] * 4)))
+    assert got == want and sweep.LAUNCHES > 0
+
+
+@pytest.fixture()
+def cards4():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+@pytest.mark.parametrize("n_data,n_shards", [(1, 4), (2, 2)])
+def test_sharded_accumulate_across_cards_matches_cpu(cards4, n_data, n_shards):
+    """The sharded step over 4 real cards (peer copies in the exchange)
+    equals the CPU mesh's, every replica included."""
+    from pykmer_tpu_torch.parallel import make_mesh
+
+    seq = np.random.default_rng(17).integers(0, 5, size=60_000).astype(np.uint8)
+    cpu = _sharded_run(make_mesh(n_shards, n_data, device="cpu"), seq, 9, 2048)
+    cards = _sharded_run(make_mesh(n_shards, n_data, devices=cards4), seq, 9, 2048)
+    assert cards[1:] == cpu[1:]
+    for r in range(n_data):
+        for s in range(n_shards):
+            assert torch.equal(cards[0][r][s], cpu[0][r][s])
+
+
+def test_sharded_index_and_merge_across_cards(cards4, tmp_path):
+    """A sharded index and a sharded merge over 4 real cards give the CPU's
+    `.kin` and the single-device `.kma` matrix."""
+    from pykmer_tpu_torch.index import create_fasta_index_sharded
+    from pykmer_tpu_torch.merge import merge
+    from pykmer_tpu_torch.parallel import make_mesh
+
+    kins = []
+    for i in range(3):
+        fasta = _genome(str(tmp_path / f"x{i}.fa"), np.random.default_rng(20 + i),
+                        n_records=3)
+        cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 14)
+        want = _kin(create_fasta_index(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                       device="cpu"))
+        h = create_fasta_index_sharded(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                       mesh=make_mesh(2, 2, devices=cards4))
+        kins.append(h.index_file_root)
+        with open(kins[-1], "rb") as fh:
+            assert fh.read() == want[0]
+    _, single = merge(str(tmp_path / "one"), kins, engine="device", block_size=100_000,
+                      verbose=False, device=cards4[0])
+    _, sharded = merge(str(tmp_path / "four"), kins, block_size=100_000, verbose=False,
+                       device=cards4[0], mesh=make_mesh(devices=cards4))
+    assert np.array_equal(single, sharded)
+
+
+@pytest.mark.parametrize("extra", [[], ["--shards", "1"]])
+def test_cli_index_on_a_named_card_in_a_new_process(cuda, tmp_path, extra):
+    """``--device cuda:0`` in a new process, single-device and sharded: the
+    run's first CUDA call is a per-card one (the peak memory reset), which
+    fails unless CUDA was initialised before it."""
+    import subprocess
+    import sys
+
+    fasta = _genome(str(tmp_path / "named.fa"), np.random.default_rng(5), n_records=2)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    proc = subprocess.run(
+        [sys.executable, "-m", "pykmer_tpu_torch", "index", fasta, "s", "9",
+         "--device", "cuda:0", "--quiet", *extra],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert os.path.exists(fasta + ".09.kin")

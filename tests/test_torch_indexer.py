@@ -151,7 +151,8 @@ def test_cli_index_matches_jax(tmp_path):
 
 
 def test_cli_rejects_and_defers(tmp_path, capsys):
-    assert cli.main(["merge", "p", "a.kin", "b.kin", "--shards", "2"]) == 2
+    assert cli.main(["index", "x.fa", "s", "7", "--coordinator", "h:1",
+                     "--num-processes", "2"]) == 2
     assert "not yet ported" in capsys.readouterr().err
     assert cli.main(["index", "x.fa", "s", "7", "--chunk-windows", "100"]) == 2
     if not torch.cuda.is_available():

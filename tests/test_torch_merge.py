@@ -235,17 +235,19 @@ def test_merge_guards_match_jax(tmp_path, kins, case):
 
 def test_merge_exists_and_shards(tmp_path, kins):
     """A second merge into the same project raises FileExistsError in both
-    packages; n_shards > 1 is not yet ported."""
+    packages; n_shards=2 gives the JAX package's sharded `.kma`."""
     paths = kins[5][:2]
     for fn, kw in ((jax_merge, {}), (port_merge, {"device": "cpu"})):
         proj = str(tmp_path / ("pj" if fn is jax_merge else "pt"))
         fn(proj, paths, verbose=False, **kw)
         with pytest.raises(FileExistsError):
             fn(proj, paths, verbose=False, **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_merge(str(tmp_path / "ps"), paths, n_shards=2, verbose=False,
-                   device="cpu")
-    assert not os.path.exists(str(tmp_path / "ps.001-255.kma"))
+    sharded = []
+    for fn, kw in ((jax_merge, {}), (port_merge, {"device": "cpu"})):
+        proj = str(tmp_path / ("sj" if fn is jax_merge else "st"))
+        fn(proj, paths, n_shards=2, verbose=False, **kw)
+        sharded.append(_read(proj + ".001-255.kma"))
+    assert sharded[0] == sharded[1] == _read(str(tmp_path / "pt.001-255.kma"))
 
 
 def test_merge_cuda_without_card_raises(tmp_path, kins):

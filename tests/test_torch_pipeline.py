@@ -460,7 +460,19 @@ def test_cli_index_batch_matches_jax(tmp_path, monkeypatch, capsys):
     ["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "0"],
 ])
 def test_cli_multi_device_flags_not_ported(tmp_path, capsys, flags):
+    """The multi-host flags still answer "not yet ported" (exit 2); the
+    sharded flags run the sharded index, whose `.kin` is the single-device
+    run's."""
     fasta = make_random_fasta(str(tmp_path / "m.fa"), np.random.default_rng(33))
-    assert tcli.main(["index", fasta, "s", "5", "--device", "cpu", *flags]) == 2
-    assert "not yet ported" in capsys.readouterr().err
-    assert not os.path.exists(fasta + ".05.kin")
+    kin = fasta + ".05.kin"
+    rc = tcli.main(["index", fasta, "s", "5", "--device", "cpu", "--quiet",
+                    "--chunk-windows", "64", *flags])
+    if "--coordinator" in flags:
+        assert rc == 2 and "not yet ported" in capsys.readouterr().err
+        assert not os.path.exists(kin)
+        return
+    assert rc == 0
+    sharded = _read(kin)
+    assert tcli.main(["index", fasta, "s", "5", "--device", "cpu", "--quiet",
+                      "--chunk-windows", "64"]) == 0
+    assert _read(kin) == sharded
