@@ -11,10 +11,16 @@ Phases — each one passes or raises, and any failure exits non-zero:
    the K=15 shape (a 2^29-cell plane prefilled with random values, 2^24
    sorted int32 codes with runs far above 255, sentinels and the -1 /
    int32-max bands) and the K=17 shape (a 2^33-cell plane, 2^24 sorted int64
-   codes, most above 2^31); median kernel and plain times at both shapes;
+   codes, most above 2^31); median kernel and plain times at both shapes,
+   beside the kernel's bound (the codes read once plus one 32-byte sector
+   read and one written back per distinct in-range sector, at 3.35 TB/s)
+   and its share of it; then the card tests of the kernel's edges (runs
+   over block boundaries, ragged and tiny batches, unaligned codes views,
+   the bands, int64 codes above 2^31: ``tests/test_torch_cuda.py -k
+   test_kernel_``, in a pytest subprocess);
 3. oracle: a small FASTA (Ns, several records, an empty one) indexed at K=11
    through ``python -m pykmer_tpu_torch index`` gives the `.kin` and stats of
-   ``pykmer_tpu.oracle`` (numpy);
+   the port's copy of the numpy oracle (``pykmer_tpu_torch.oracle``);
 4. the slice at real size: a seeded 256 Mbp genome with repeat families,
    indexed at K=15 through the CLI entry point with verify on (the streaming
    pipeline); the kernel's launch count equals the count of chunks the
@@ -35,12 +41,13 @@ Phases — each one passes or raises, and any failure exits non-zero:
    (``torch.equal`` on the card) whose stats are the `.kin`'s. Each 16 GiB
    `.kin` is removed as soon as it is checked;
 7. merge fan-in at the reference's workload shape: 39 synthetic K=13
-   samples, 8 of them `.kin.bgz` (``scripts/bench_merge_fanin.py``'s
-   ``fabricate_kin``, seeds 1000+i), merged through the CLI entry with the
-   device engine on the card and with the host engine: equal `.kma`
-   matrices, three pairs equal to ``pair_counts_stream``, the device block
-   steps one per block; the device step's time per block (CUDA events) with
-   its unpack and product apart, and the host-vs-device crossover in N;
+   samples, 8 of them `.kin.bgz` (``fabricate_kin``: the recipe of
+   ``scripts/bench_merge_fanin.py`` on the port's ``formats``, seeds
+   1000+i), merged through the CLI entry with the device engine on the card
+   and with the host engine: equal `.kma` matrices, three pairs equal to
+   ``pair_counts_stream``, the device block steps one per block; the device
+   step's time per block (CUDA events) with its unpack and product apart,
+   and the host-vs-device crossover in N;
 8. a merge pair at K=15, full size: phase 4's `.kin` and a seeded
    perturbation of it, device engine vs host engine vs
    ``pair_counts_stream``, with wall times and MB/s streamed;
@@ -160,10 +167,29 @@ def sorted_batch(rng, cells, m, hot_cells, dtype):
     return np.sort(codes).astype(dtype)
 
 
+def sweep_bound_ms(batches, cells):
+    """The least time the card could take to apply these sorted batches to a
+    plane of ``cells`` cells: every code read once, plus one 32-byte sector
+    read and one written back for each distinct sector of the plane that the
+    in-range codes touch (``unique_consecutive(codes >> 5)``, over the union
+    of the batches), at the published HBM3 bandwidth. Returns (ms, distinct
+    sectors, bytes)."""
+    import torch
+
+    code_bytes = sum(c.numel() * c.element_size() for c in batches)
+    sectors = torch.cat([c[(c >= 0) & (c < cells)].to(torch.int64) >> 5 for c in batches])
+    if len(batches) > 1:
+        sectors = torch.sort(sectors).values
+    n_sectors = int(torch.unique_consecutive(sectors).numel())
+    moved = code_bytes + n_sectors * 2 * 32
+    return moved / H100_SXM_BYTES_PER_S * 1e3, n_sectors, moved
+
+
 def kernel_vs_plain(dev, cells, codes, hot, label):
     """The kernel and the plain sweep on two copies of one random plane;
-    returns (max abs err, min kernel ms, min plain ms), each time the median
-    of one round, rounds alternating plain, kernel, kernel, plain."""
+    returns (max abs err, min kernel ms, min plain ms, bound ms), each time
+    the median of one round, rounds alternating plain, kernel, kernel,
+    plain."""
     import torch
 
     from pykmer_tpu_torch.ops import sweep
@@ -187,18 +213,37 @@ def kernel_vs_plain(dev, cells, codes, hot, label):
     t_kernel = [median_ms(lambda: sweep.accumulate_sorted(a, codes), 20)]
     t_kernel.append(median_ms(lambda: sweep.accumulate_sorted(a, codes), 20))
     t_plain.append(median_ms(lambda: saturating_accumulate_sorted(b, codes), 10))
-    log(f"sweep time, {label} (median ms): kernel {t_kernel} plain {t_plain}")
-    # the kernel's memory floor: the codes once, plus one 32-byte sector read
-    # and one written back per distinct in-range code
-    distinct = int(torch.unique_consecutive(codes[(codes >= 0) & (codes < cells)]).numel())
-    moved = codes.numel() * codes.element_size() + distinct * 2 * 32
-    floor_ms = moved / H100_SXM_BYTES_PER_S * 1e3
-    log(f"sweep memory floor, {label}: {distinct} distinct in-range codes, {moved} "
-        f"bytes -> {floor_ms:.4f} ms at {H100_SXM_BYTES_PER_S / 1e12} TB/s "
-        f"(published HBM3 bandwidth); kernel at {floor_ms / min(t_kernel):.3f} of it")
+    bound, sectors, moved = sweep_bound_ms([codes], cells)
+    log(f"sweep, {label} (median ms): kernel {t_kernel}, plain {t_plain}; bound "
+        f"{bound:.4f} ms ({codes.numel() * codes.element_size()} bytes of codes + "
+        f"2 x 32 B for each of {sectors} distinct in-range sectors = {moved} bytes at "
+        f"{H100_SXM_BYTES_PER_S / 1e12} TB/s, the published HBM3 bandwidth); kernel at "
+        f"{bound / min(t_kernel):.3f} of its bound")
     del a, b
     torch.cuda.empty_cache()
-    return err, min(t_kernel), min(t_plain)
+    return err, min(t_kernel), min(t_plain), bound
+
+
+def kernel_edge_cases():
+    """The card tests of the sweep's edges (runs longer than a block's
+    positions, across a block boundary, from a block's last position to past
+    it or to the batch's end; batches smaller than a block or not a multiple
+    of it, one run over the whole batch, m = 1, codes views at unaligned
+    offsets, the sentinel / -1 / int32-max bands, int64 codes above 2^31),
+    each byte for byte against the plain version, in a pytest subprocess."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+         "-m", "cuda", "tests/test_torch_cuda.py", "-k", "test_kernel_"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:]
+    if proc.returncode != 0 or not tail or " passed" not in tail[0] \
+            or "skipped" in tail[0]:
+        raise AssertionError(f"sweep edge cases failed:\n{proc.stdout[-4000:]}"
+                             f"{proc.stderr[-2000:]}")
+    log(f"sweep edge cases (tests/test_torch_cuda.py -k test_kernel_): {tail[0]} "
+        f"in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_kernels(dev):
@@ -220,6 +265,7 @@ def phase_kernels(dev):
     k17 = kernel_vs_plain(dev, K17_CELLS, codes, hot, "int64 at the K=17 shape")
     del codes
     torch.cuda.empty_cache()
+    kernel_edge_cases()
     return k15, k17
 
 
@@ -284,7 +330,7 @@ def take_outputs(kin):
 def phase_oracle(work, dev):
     import numpy as np
 
-    from pykmer_tpu.oracle import oracle_write_index
+    from pykmer_tpu_torch.oracle import oracle_write_index
 
     fa = os.path.join(work, "small.fa")
     write_small_fasta(fa, np.random.default_rng(SEED))
@@ -308,7 +354,7 @@ def pipelined_chunks(genome, k, cw):
     """The chunks the index of ``genome`` runs, in order: the pipelined
     producer over the file's bytes finds the streaming run's segment bounds.
     Returns (chunks, total bp)."""
-    from pykmer_tpu.io.fasta import open_input_bytes
+    from pykmer_tpu_torch.io.fasta import open_input_bytes
     from pykmer_tpu_torch.host.pipeline import iter_pipelined_chunks
 
     sink = {}
@@ -337,8 +383,7 @@ def replay(chunks, k, cw, dev, sweeps):
 
 
 def chunk_windows_for(genome, k, dev):
-    from pykmer_tpu.config import IndexConfig
-    from pykmer_tpu_torch.config import resolve_chunk_windows
+    from pykmer_tpu_torch.config import IndexConfig, resolve_chunk_windows
 
     return resolve_chunk_windows(IndexConfig(kmer_len=k), dev,
                                  os.path.getsize(genome)).chunk_windows
@@ -349,7 +394,7 @@ def phase_slice(work, dev):
     import numpy as np
 
     import bench
-    from pykmer_tpu.utils.checksum import sha256_file
+    from pykmer_tpu_torch.utils.checksum import sha256_file
     from pykmer_tpu_torch.ops import sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
     from pykmer_tpu_torch.ops.readback import unfold_canonical
@@ -469,9 +514,9 @@ def phase_k17_oracle(work, dev, fa):
     cells are exactly the numpy oracle's canonical codes, clipped counts."""
     import numpy as np
 
-    from pykmer_tpu.formats.kin import iter_kin_blocks
-    from pykmer_tpu.io.fasta import read_fasta_codes
-    from pykmer_tpu.oracle.gold import oracle_canonical_codes
+    from pykmer_tpu_torch.formats.kin import iter_kin_blocks
+    from pykmer_tpu_torch.io.fasta import read_fasta_codes
+    from pykmer_tpu_torch.oracle.gold import oracle_canonical_codes
 
     k = BIG_K
     wall = cli_subprocess(["index", fa, "small", str(k), "--device", str(dev), "--quiet"])
@@ -512,7 +557,7 @@ def phase_k17(work, dev, genome):
     chunks; replay: kernel plane == plain plane, with the `.kin`'s stats."""
     import torch
 
-    from pykmer_tpu.formats.header import stats_from_counts256
+    from pykmer_tpu_torch.formats.header import stats_from_counts256
     from pykmer_tpu_torch.ops import sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
 
@@ -560,7 +605,7 @@ def phase_k17(work, dev, genome):
 def device_blocks(n, k, n_shards=1):
     """Blocks of the device engine for ``n`` samples at ``k`` with the
     default block size (the engine's own clamp and alignment)."""
-    from pykmer_tpu.config import DEFAULT_BLOCK_SIZE
+    from pykmer_tpu_torch.config import DEFAULT_BLOCK_SIZE
     from pykmer_tpu_torch.merge.merger import _aligned_block
     from pykmer_tpu_torch.ops.compare import padded_rows
 
@@ -575,7 +620,7 @@ def merge_both(work, name, kins, dev, k):
     engine on the card and with the host engine; the two `.kma` matrices
     must be equal and the device engine must step once per block. Returns
     (matrix, {engine: wall seconds})."""
-    from pykmer_tpu.formats.kma import read_kma
+    from pykmer_tpu_torch.formats.kma import read_kma
     from pykmer_tpu_torch import cli
     from pykmer_tpu_torch.ops import compare
 
@@ -656,13 +701,47 @@ def merge_step_times(dev, n, k):
     return times["step_ms"]
 
 
+def fabricate_kin(path_stem, kmer_len, seed, bgz=False):
+    """Write a synthetic {stem}.fa.{K:02d}.kin(.bgz) + .kin.json with a
+    plausible coverage distribution (Poisson-ish + saturated tail): the
+    recipe of ``scripts/bench_merge_fanin.fabricate_kin``, written on the
+    port's ``formats`` and ``io``."""
+    import numpy as np
+
+    from pykmer_tpu_torch.formats.header import KinHeader, fast_counts256
+    from pykmer_tpu_torch.io.bgzf import compress_file
+
+    data_size = 4**kmer_len
+    rng = np.random.default_rng(seed)
+    # ~half the cells empty, heavy tail, some saturation
+    plane = rng.poisson(1.2, size=data_size).astype(np.uint16)
+    hot = rng.integers(0, data_size, size=data_size // 1000)
+    plane[hot] += rng.integers(200, 400, size=hot.shape[0]).astype(np.uint16)
+    plane = np.minimum(plane, 255).astype(np.uint8)
+
+    fake_input = f"{path_stem}.fa"
+    with open(fake_input, "w") as fh:
+        fh.write(">synthetic\nACGT\n")
+    kin = f"{fake_input}.{kmer_len:02d}.kin"
+    with open(kin, "wb") as fh:
+        fh.write(plane.tobytes())
+    h = KinHeader(fake_input, input_file=fake_input, kmer_len=kmer_len)
+    h.num_kmers = int(plane.astype(np.int64).sum())
+    h.chromosomes = [("synthetic", 4)]
+    h.write_metadata(kin, stats_counts256=fast_counts256(plane))
+    if bgz:
+        compress_file(kin)
+        os.remove(kin)
+        return f"{kin}.bgz"
+    return kin
+
+
 def phase_merge_fanin(work, dev):
     """N=39 at K=13 (8 .bgz): device vs host engine through the CLI entry,
     three pairs vs pair_counts_stream, the device step's time, and the
     host-vs-device crossover in N."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from scripts.bench_merge_fanin import fabricate_kin
     from pykmer_tpu_torch.merge import merge
 
     k, d = FANIN_K, os.path.join(work, "fanin")
@@ -705,7 +784,7 @@ def phase_merge_sharded(work, dev, kins, k, want):
     four block steps per block."""
     import numpy as np
 
-    from pykmer_tpu.formats.kma import read_kma
+    from pykmer_tpu_torch.formats.kma import read_kma
     from pykmer_tpu_torch.merge import merge
     from pykmer_tpu_torch.ops import compare
     from pykmer_tpu_torch.parallel import make_mesh
@@ -780,8 +859,8 @@ def phase_merge_pair(work, dev, genome):
 def phase_serve(work, dev, genome, gz, want_sha, want_kmers):
     """``serve --warmup-k 15`` in a subprocess: index the genome and its gzip
     copy, a failing index, merge, distance, shutdown."""
-    from pykmer_tpu.formats.kma import read_kma
-    from pykmer_tpu.utils.checksum import sha256_file
+    from pykmer_tpu_torch.formats.kma import read_kma
+    from pykmer_tpu_torch.utils.checksum import sha256_file
 
     k = SLICE_K
     kins = [p + f".{k:02d}.kin" for p in (genome, gz)]
@@ -898,7 +977,7 @@ class _Stop(Exception):
 def sharded_frames(genome, k, cw):
     """The genome decoded whole and framed as the sharded index frames it:
     (padded stream, number of chunks)."""
-    from pykmer_tpu.io.fasta import open_input_bytes
+    from pykmer_tpu_torch.io.fasta import open_input_bytes
     from pykmer_tpu_torch.host.chunks import chunk_stream
     from pykmer_tpu_torch.host.decode import decode_joined_bytes
 
@@ -988,6 +1067,7 @@ def sharded_step_times(dev, mesh_shape, rows_np):
     }
     times["rows_kernel_ms_2"] = median_ms(
         lambda: [sweep.accumulate_sorted(planes[0], r) for r in rows], 10)
+    times["rows_bound_ms"] = sweep_bound_ms(rows, step.local_size)[0]
     log("sharded step, median device ms: " + json.dumps(times))
     del state, planes, sends, received, rows, bases, mask
     torch.cuda.empty_cache()
@@ -1154,15 +1234,15 @@ def main():
 
     kernels = []
     rows_1x4 = step_times[0]
-    for name, n, (err, ms, plain_ms) in (
+    for name, n, (err, ms, plain_ms, bound_ms) in (
             ("sweep_sorted", launches, k15_sweep),
             ("sweep_sorted_i64", launches_i64,
-             (max(k17_sweep[0], replay_err), k17_sweep[1], k17_sweep[2])),
+             (max(k17_sweep[0], replay_err), *k17_sweep[1:])),
             # the sharded path's launches (the 1x4 run); times: one shard's 4
             # received rows of one step, one launch each, kernel vs plain
             ("sweep_sorted_sharded_rows", sharded[f"mesh 1x4 on {dev}"][1],
              (sharded_err, min(rows_1x4["rows_kernel_ms"], rows_1x4["rows_kernel_ms_2"]),
-              rows_1x4["rows_plain_ms"]))):
+              rows_1x4["rows_plain_ms"], rows_1x4["rows_bound_ms"]))):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1172,6 +1252,10 @@ def main():
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            # no PyTorch call computes a saturating uint8 accumulate
+            "library_ms": None,
         })
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

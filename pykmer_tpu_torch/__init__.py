@@ -3,13 +3,22 @@
 This package indexes FASTA into the same `.kin` + `.kin.json` files as
 ``pykmer_tpu`` (byte-identical `.kin`), and merges indexes into the same
 `.kma` + `.kma.json`, on an NVIDIA GPU. The device work is torch ops plus
-hand-written CUDA kernels (``csrc/``); the host layer reuses pykmer_tpu's
-JAX-free modules (``formats``, ``io``, ``utils``, ``config``, ``oracle``,
-``analysis``, ``testgen``). It never imports jax.
+hand-written CUDA kernels (``csrc/``). It imports neither jax nor anything
+of ``pykmer_tpu``: the JAX-free modules it needs (``formats``, ``io`` with
+the C++ ``native`` library, ``utils``, ``config``, ``oracle``, ``analysis``,
+``testgen``) are its own copies, each held against its original by
+``tests/test_torch_copies.py``.
 
 Layout
 ------
-- ``config``  : chunk-size defaults and the accumulate strategy per device
+- ``config``  : the typed configuration, chunk-size defaults and the
+                accumulate strategy per device
+- ``formats``, ``io``, ``utils``, ``analysis``, ``oracle``, ``testgen``:
+                copies of the JAX package's JAX-free modules — the `.kin` /
+                `.kma` files, FASTA / bgzf / direct I/O with the C++
+                ``native`` library (built under ``build/native/``), timers,
+                checksums and profiling hooks, distances and trees, the
+                numpy oracle, the fixture generator
 - ``host``    : numpy FASTA decode, record-aligned segments, the streaming
                 reader, the pipelined chunk producer, chunk framing / 2-bit
                 packing
@@ -30,7 +39,7 @@ Layout
 - ``csrc``    : CUDA C++ kernel sources, built at first use
 
 State the two packages share is on disk: the `.kin` and `.kma` files, both
-read and written through ``pykmer_tpu.formats``, and the sharded index's
+read and written through the same ``formats`` code, and the sharded index's
 checkpoints (the same ``[S, local]`` array and ``state.json``). The merge's
 only device state, its int64 accumulator, comes back as a numpy array as the
 JAX engine's does, so no conversion function is needed beyond ``state``'s.

@@ -36,7 +36,7 @@ import os
 import sys
 from typing import List, Optional
 
-from pykmer_tpu.config import (
+from .config import (
     DEFAULT_BLOCK_SIZE,
     DEFAULT_MAX_COUNT,
     DEFAULT_MIN_COUNT,
@@ -206,7 +206,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 verify=not args.no_verify, verbose=not args.quiet, device=args.device,
             )
         if args.bgzip:
-            from pykmer_tpu.io.bgzf import bgzip_kin
+            from .io.bgzf import bgzip_kin
 
             bgz, gzi = bgzip_kin(header.index_file_root)
             if not args.quiet:
@@ -251,13 +251,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     if args.command == "distance":
-        from pykmer_tpu.analysis.distance import load
+        from .analysis.distance import load
 
         load(args.matrix_file, names_file=args.names_file)
         return 0
 
     if args.command == "kwip":
-        from pykmer_tpu.analysis.kwip import compare_with_kma, load_kwip
+        from .analysis.kwip import compare_with_kma, load_kwip
 
         load_kwip(args.dist_file, names_file=args.names_file)
         if args.compare_kma:
@@ -276,13 +276,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         return serve(device=args.device)
 
     if args.command == "gzi":
-        from pykmer_tpu.io.gzi import print_index
+        from .io.gzi import print_index
 
         print_index(args.index_file)
         return 0
 
     if args.command == "testgen":
-        from pykmer_tpu import testgen
+        from . import testgen
 
         os.makedirs(os.path.dirname(args.prefix) or ".", exist_ok=True)
         for k in args.kmer_lens or [3, 5, 7, 9, 11, 13, 15, 17, 19, 21]:
@@ -291,7 +291,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     if args.command == "bgzip":
-        from pykmer_tpu.io.bgzf import compress_file
+        from .io.bgzf import compress_file
 
         bgz, gzi = compress_file(args.file, level=args.level)
         if args.delete:

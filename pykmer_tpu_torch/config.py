@@ -1,9 +1,11 @@
-"""Per-device defaults of the index configuration.
+"""Typed configuration of the port, and its per-device defaults.
 
-The configuration itself is ``pykmer_tpu.config.IndexConfig`` (JAX-free);
-:func:`resolve_chunk_windows` and :func:`resolve_strategy` are
-device-specific, and the JAX package's versions ask jax for its backend, so
-the port has its own.
+``IndexConfig``, ``MergeConfig`` and the module constants are
+a copy of ``pykmer_tpu/config.py`` (held against it by
+``tests/test_torch_copies.py``), without its JAX-backend
+``resolve_chunk_windows``. :func:`resolve_chunk_windows` and
+:func:`resolve_strategy` are device-specific: the JAX package's versions ask
+jax for its backend, so the port has its own.
 """
 
 from __future__ import annotations
@@ -13,7 +15,65 @@ from typing import Optional
 
 import torch
 
-from pykmer_tpu.config import IndexConfig
+DEFAULT_FLUSH_EVERY = 100_000_000
+DEFAULT_MIN_FRAG_SIZE = 500_000_000
+DEFAULT_MAX_FRAG_SIZE = 1_000_000_000
+DEFAULT_MIN_COUNT = 1
+DEFAULT_MAX_COUNT = 255
+DEFAULT_BLOCK_SIZE = 100_000_000
+DEFAULT_THREADS = 4
+MAX_VAL = 255  # uint8 saturation ceiling (reference tools.py:217)
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexConfig:
+    """Configuration of one indexing run (FASTA → .kin)."""
+
+    kmer_len: int
+    # host→device streaming: number of window starts per device chunk.
+    # ``None`` resolves per backend at run start (resolve_chunk_windows):
+    # 16M windows on TPU — fewer dispatch/upload round-trips dominate there
+    # (measured 9.1 s → 5.1 s ingest at 840 Mbp vs 4M windows) — and 4M
+    # elsewhere (XLA CPU compile time scales with batch size).
+    chunk_windows: Optional[int] = None
+    # kmer codes buffered on device before a dense-array accumulate
+    flush_every: int = DEFAULT_FLUSH_EVERY
+    min_frag_size: int = DEFAULT_MIN_FRAG_SIZE
+    max_frag_size: int = DEFAULT_MAX_FRAG_SIZE
+    # device strategy: "auto" | "device" (HBM-resident dense array) | "host"
+    # (host-RAM dense array for count spaces exceeding HBM, e.g. K=17 1-chip)
+    accumulate: str = "auto"
+    # accumulate kernel: "auto" picks the Pallas tile-sweep on TPU for large
+    # count spaces (XLA scatter lowers to a serial loop there) and the XLA
+    # sort+scan path elsewhere
+    kernel: str = "auto"
+    # final device→host fetch: "auto" uses 4-bit packed readback for large
+    # arrays over slow host links; "raw"/"packed" force a path
+    readback: str = "auto"
+
+    def __post_init__(self) -> None:
+        if self.kmer_len <= 0 or self.kmer_len % 2 == 0:
+            raise ValueError(
+                f"kmer_len must be a positive odd integer, got {self.kmer_len}"
+            )
+        if self.chunk_windows is not None and self.chunk_windows % 8:
+            raise ValueError(
+                f"chunk_windows must be a multiple of 8 (bit-packed upload "
+                f"alignment), got {self.chunk_windows}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class MergeConfig:
+    """Configuration of one merge run (N×.kin → .kma)."""
+
+    min_count: int = DEFAULT_MIN_COUNT
+    max_count: int = DEFAULT_MAX_COUNT
+    block_size: int = DEFAULT_BLOCK_SIZE
+    threads: int = DEFAULT_THREADS
+    # device engine: bit-pack validity masks once per sample, AND+popcount pairs
+    engine: str = "auto"  # "auto" | "device" | "stream"
+
 
 # window starts per device chunk: large chunks amortise per-chunk launches
 # and the host→device copy on the GPU; the CPU (tests) keeps them small

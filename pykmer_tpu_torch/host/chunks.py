@@ -30,7 +30,7 @@ def chunk_stream(
     if need > n:
         # pad in place when the stream's pooled block has tail capacity
         # (the decode path over-allocates for exactly this)
-        from pykmer_tpu.utils.bigmem import extend_view
+        from ..utils.bigmem import extend_view
 
         ext = extend_view(concat_codes, need)
         if ext is None:
@@ -61,7 +61,7 @@ def pack_base_stream(padded: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     if n % 8:
         padded = np.concatenate([padded, np.full(8 - n % 8, 4, np.uint8)])
     try:
-        from pykmer_tpu.io.native import pack_base_2bit_mask_native
+        from ..io.native import pack_base_2bit_mask_native
 
         # thread spawn/join costs more than the work below ~8 MB
         threads = 8 if padded.shape[0] >= (8 << 20) else 1
@@ -120,8 +120,8 @@ def iter_chunks_prepacked(
     chunk_windows: int,
 ):
     """Yield (bases2, maskbits-or-None) chunks as views of planes that the
-    native packed decode (``pykmer_tpu.io.native
-    .fasta_decode_joined_packed_native``) wrote: invalid-padded past
+    native packed decode (``io.native.fasta_decode_joined_packed_native``)
+    wrote: invalid-padded past
     ``n_codes``, with capacity for the final chunk's span. No packing happens
     here."""
     if chunk_windows % 8:
@@ -155,7 +155,7 @@ def iter_chunks_packed_lazy(
     from concurrent.futures import ThreadPoolExecutor
 
     def pack_one(piece):
-        from pykmer_tpu.utils import renice_current_thread
+        from ..utils import renice_current_thread
 
         renice_current_thread(10)  # yield the cores to the dispatch thread
         bases, mask = pack_base_stream(piece)

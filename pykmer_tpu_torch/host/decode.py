@@ -2,8 +2,7 @@
 
 Copies of ``_record_has_valid_window``, ``_concat_records`` and
 ``_decode_joined_bytes`` from ``pykmer_tpu/index/indexer.py``, which imports
-jax. The native one-pass decoder (``pykmer_tpu.io.native``) is JAX-free and
-shared as it is.
+jax. The native one-pass decoder is the port's copy, ``io/native.py``.
 """
 
 from __future__ import annotations
@@ -12,7 +11,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from pykmer_tpu.io.fasta import FastaRecord, decode_fasta_bytes
+from ..io.fasta import FastaRecord, decode_fasta_bytes
 
 
 def record_has_valid_window(codes: np.ndarray, kmer_len: int) -> bool:
@@ -57,7 +56,7 @@ def decode_joined_bytes(data, kmer_len: int, tail_headroom: int = 0):
     total_bp): the native one-pass path, with the numpy record path where the
     native library is absent or overflows. Both give identical results."""
     try:
-        from pykmer_tpu.io.native import fasta_decode_joined_native
+        from ..io.native import fasta_decode_joined_native
 
         result = fasta_decode_joined_native(
             data, kmer_len, tail_headroom=tail_headroom

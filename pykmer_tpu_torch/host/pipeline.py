@@ -16,7 +16,7 @@ from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 
-from pykmer_tpu.utils import renice_current_thread
+from ..utils import renice_current_thread
 
 from .chunks import chunk_stream, iter_chunks_packed_lazy, iter_chunks_prepacked
 from .segments import StreamingInput, iter_segments_streaming, segment_record_bounds
@@ -38,8 +38,8 @@ def iter_pipelined_chunks(
     ``sink`` receives "chromosomes" (list) and "total_bp" (int), complete once
     the generator is exhausted. A decode error is re-raised here, on the
     consumer's thread; a consumer that stops early stops the producer. Needs
-    the native library (``pykmer_tpu.io.native``)."""
-    from pykmer_tpu.io import native
+    the native library (``io/native.py``)."""
+    from ..io import native
 
     if isinstance(data, StreamingInput):
         buf = data.buf

@@ -19,8 +19,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from pykmer_tpu.utils import renice_current_thread
-from pykmer_tpu.utils.bigmem import big_empty
+from ..utils import renice_current_thread
+from ..utils.bigmem import big_empty
 
 
 def find_record_start(buf: np.ndarray, start: int, limit: int) -> Optional[int]:
@@ -89,7 +89,7 @@ class StreamingInput:
 
     def _read(self) -> None:
         # looked up at call time so tests can throttle the reader
-        from pykmer_tpu.io import direct
+        from ..io import direct
 
         renice_current_thread(10)
         try:

@@ -17,11 +17,9 @@ from typing import List, Optional, Union
 
 import torch
 
-from pykmer_tpu.config import IndexConfig
-from pykmer_tpu.formats import kin as kinfmt
-
+from ..config import IndexConfig, resolve_chunk_windows
+from ..formats import kin as kinfmt
 from .. import resolve_device
-from ..config import resolve_chunk_windows
 from .indexer import create_fasta_index
 
 
@@ -87,7 +85,7 @@ def index_batch(
         result.indexed.append(path)
         result.total_bp += sum(c[1] for c in header.chromosomes)
         if bgzip:
-            from pykmer_tpu.io.bgzf import bgzip_kin
+            from ..io.bgzf import bgzip_kin
 
             bgz, gzi = bgzip_kin(header.index_file_root)
             if verbose:

@@ -31,17 +31,15 @@ from typing import Iterable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from pykmer_tpu.config import MAX_VAL, IndexConfig
-from pykmer_tpu.formats import kin as kinfmt
-from pykmer_tpu.formats.header import KinHeader
-from pykmer_tpu.io.direct import DirectWriter
-from pykmer_tpu.io.fasta import open_input_bytes
-from pykmer_tpu.utils.bigmem import big_empty, big_zeros
-from pykmer_tpu.utils.checksum import sha256_file
-from pykmer_tpu.utils.profiling import StageTimer
-
+from ..config import MAX_VAL, IndexConfig, resolve_chunk_windows, resolve_strategy
+from ..formats import kin as kinfmt
+from ..formats.header import KinHeader
+from ..io.direct import DirectWriter
+from ..io.fasta import open_input_bytes
+from ..utils.bigmem import big_empty, big_zeros
+from ..utils.checksum import sha256_file
+from ..utils.profiling import StageTimer
 from .. import resolve_device
-from ..config import resolve_chunk_windows, resolve_strategy
 from ..host.chunks import chunk_stream, iter_chunks_packed_lazy
 from ..host.decode import decode_joined_bytes
 from ..host.pipeline import iter_pipelined_chunks
@@ -65,7 +63,7 @@ STAGING_SLOTS = 3  # pinned host buffers the uploads rotate through
 
 def _have_native() -> bool:
     try:
-        import pykmer_tpu.io.native  # noqa: F401
+        import pykmer_tpu_torch.io.native  # noqa: F401
     except ImportError:
         return False
     return True

@@ -1,16 +1,15 @@
 """Index reading and verification: port of ``pykmer_tpu/index/reader.py``.
 
 Host-only: the `.kin` metadata and a re-derivation of its stats from the
-file. It imports ``pykmer_tpu.formats`` directly, since ``pykmer_tpu.index``
-imports jax.
+file, through the port's copy of ``formats``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from pykmer_tpu.formats import kin as kinfmt
-from pykmer_tpu.formats.header import KinHeader
+from ..formats import kin as kinfmt
+from ..formats.header import KinHeader
 
 
 def read_fasta_index(

@@ -25,14 +25,14 @@ from typing import Optional, Union
 
 import torch
 
-from pykmer_tpu.config import IndexConfig
-from pykmer_tpu.formats import kin as kinfmt
-from pykmer_tpu.formats.header import KinHeader
-from pykmer_tpu.io.direct import DirectWriter
-from pykmer_tpu.io.fasta import open_input_bytes
-from pykmer_tpu.utils.bigmem import big_empty
-from pykmer_tpu.utils.checksum import sha256_file
-from pykmer_tpu.utils.profiling import StageTimer
+from ..config import IndexConfig
+from ..formats import kin as kinfmt
+from ..formats.header import KinHeader
+from ..io.direct import DirectWriter
+from ..io.fasta import open_input_bytes
+from ..utils.bigmem import big_empty
+from ..utils.checksum import sha256_file
+from ..utils.profiling import StageTimer
 
 from ..host.chunks import chunk_stream
 from ..host.decode import decode_joined_bytes

@@ -19,7 +19,7 @@ total on the diagonal:
 The reader threads pack into pinned staging buffers, and the upload is
 non-blocking, so the next block is read while the card multiplies the
 previous one. ``merge`` writes the `.kma` and `.kma.json` through
-``pykmer_tpu.formats.kma``: the JAX package's files, byte for byte.
+the port's copy of ``formats.kma``: the JAX package's files, byte for byte.
 """
 
 from __future__ import annotations
@@ -31,10 +31,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from pykmer_tpu.config import MergeConfig
-from pykmer_tpu.formats import kin as kinfmt
-from pykmer_tpu.formats import kma as kmafmt
-from pykmer_tpu.formats.header import KinHeader
+from ..config import MergeConfig
+from ..formats import kin as kinfmt
+from ..formats import kma as kmafmt
+from ..formats.header import KinHeader
 
 from .. import resolve_device
 from ..ops.compare import block_contingency, new_workspace, padded_rows
@@ -195,9 +195,9 @@ class _InputStreams:
                  buffer_size: Optional[int]):
         import struct as _struct
 
-        from pykmer_tpu.io.bgzf import BgzfRangeReader
-        from pykmer_tpu.io.direct import DirectReader
-        from pykmer_tpu.utils.bigmem import big_empty
+        from ..io.bgzf import BgzfRangeReader
+        from ..io.direct import DirectReader
+        from ..utils.bigmem import big_empty
 
         self.inflate_pool = ThreadPoolExecutor(max(2, os.cpu_count() or 2))
         self.streams: List[Tuple[str, Any]] = []
@@ -225,7 +225,7 @@ class _InputStreams:
 
     def read_block(self, i: int, want: int, off: int) -> np.ndarray:
         """Fill stream i's pooled buffer with cells [off, off+want)."""
-        from pykmer_tpu.io.direct import pread_into_mt
+        from ..io.direct import pread_into_mt
 
         kind, src = self.streams[i]
         blk = self.bufs[i][:want]
@@ -265,7 +265,7 @@ def _validity_ops(min_count: int, max_count: int) -> Tuple[Callable, Callable, C
     native library's AVX2 versions, or numpy where it is absent (the JAX
     package's fallback, with the native bit order)."""
     try:
-        from pykmer_tpu.io.native import (
+        from ..io.native import (
             pack_valid_bits_native,
             popcount_and_native,
             popcount_buf_native,

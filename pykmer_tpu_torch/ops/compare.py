@@ -3,7 +3,7 @@
 
 A block of N samples arrives as validity bits, [N, block/8] uint8 packed
 little-endian: bit i of byte j is cell 8j+i, as
-``pykmer_tpu.io.native.pack_valid_bits_native`` writes them. The device
+``io.native.pack_valid_bits_native`` writes them. The device
 unpacks them into a {0,1} int8 matrix V and adds V·Vᵀ, the block's whole
 N×N shared-cell contingency with each sample's own total on the diagonal,
 into an int64 accumulator that stays on the device.

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from pykmer_tpu.config import MAX_VAL
+from ..config import MAX_VAL
 
 
 def sort_codes_fast(codes: torch.Tensor) -> torch.Tensor:

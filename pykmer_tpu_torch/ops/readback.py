@@ -29,9 +29,9 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from pykmer_tpu.formats.header import fast_counts256
-from pykmer_tpu.utils.bigmem import big_empty
-from pykmer_tpu.utils.profiling import StageTimer
+from ..formats.header import fast_counts256
+from ..utils.bigmem import big_empty
+from ..utils.profiling import StageTimer
 
 SLICE_CELLS = 64 << 20  # folded cells per device-to-host slice
 UNFOLD_THREADS = 4  # host threads that unfold one slice (native, GIL-free)
@@ -64,7 +64,7 @@ def unfold_canonical(
     if out.shape[0] != size or out.dtype != np.uint8:
         raise ValueError("out must be uint8[4^K]")
     try:
-        from pykmer_tpu.io.native import unfold_canonical_native
+        from ..io.native import unfold_canonical_native
 
         unfold_canonical_native(np.ascontiguousarray(folded), out, kmer_len)
         return out
@@ -82,7 +82,7 @@ def unfold_range(
     thread (callers run disjoint ranges on several threads), with a blockwise
     numpy version where the native library is absent."""
     try:
-        from pykmer_tpu.io.native import unfold_canonical_range_native
+        from ..io.native import unfold_canonical_range_native
 
         unfold_canonical_range_native(
             np.ascontiguousarray(folded_slice), out, kmer_len, lo)
@@ -105,8 +105,7 @@ def unfold_range(
 def pwrite_all(fd, arr: np.ndarray, offset: int) -> None:
     """Positional write of a contiguous uint8 array (loops on short writes).
 
-    ``fd`` may be a raw file descriptor or a ``pykmer_tpu.io.direct
-    .DirectWriter``."""
+    ``fd`` may be a raw file descriptor or an ``io.direct.DirectWriter``."""
     if hasattr(fd, "pwrite"):
         fd.pwrite(arr, offset)
         return

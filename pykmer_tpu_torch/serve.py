@@ -35,7 +35,7 @@ from typing import Optional, TextIO, Union
 import numpy as np
 import torch
 
-from pykmer_tpu.config import IndexConfig
+from .config import IndexConfig
 
 from . import resolve_device
 
@@ -96,7 +96,7 @@ def _handle(req: dict, device: torch.device) -> dict:
         )
         out = header.index_file_root
         if req.get("bgzip"):
-            from pykmer_tpu.io.bgzf import bgzip_kin
+            from .io.bgzf import bgzip_kin
 
             out, _ = bgzip_kin(out, keep=bool(req.get("keep_kin", True)))
         return {
@@ -124,7 +124,7 @@ def _handle(req: dict, device: torch.device) -> dict:
             "seconds": round(time.monotonic() - t0, 2),
         }
     if cmd == "distance":
-        from pykmer_tpu.analysis.distance import load
+        from .analysis.distance import load
 
         t0 = time.monotonic()
         load(req["matrix_file"], names_file=req.get("names_file"))

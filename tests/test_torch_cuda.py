@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from pykmer_tpu.config import IndexConfig
+from pykmer_tpu_torch.config import IndexConfig
 from pykmer_tpu_torch import create_fasta_index
 from pykmer_tpu_torch.ops import sweep
 from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
@@ -64,6 +64,96 @@ def test_kernel_edge_batches(cuda, codes):
     plane = np.random.default_rng(1).integers(0, 256, size=64).astype(np.uint8)
     plane[:8] = 254
     _kernel_vs_plain(plane, np.asarray(codes, dtype=np.int64), torch.int64, cuda)
+
+
+BLOCK = 1024  # sorted positions a block of the sweep kernel covers (csrc/sweep.cu)
+
+
+def _block_edge_case(case, rng):
+    """(cells, unsorted codes) that put a run where the kernel's blocks have
+    an edge: each block covers BLOCK consecutive sorted positions, and a run
+    belongs to the thread of its head, whatever block its tail lies in."""
+    cells = 1 << 20
+    m = 256 * BLOCK
+    codes = rng.integers(0, cells, size=m)
+    codes.sort()
+    if case == "run_longer_than_block":
+        codes[5000 : 5000 + 3 * BLOCK] = codes[5000]
+    elif case == "run_across_block_boundary":
+        codes[5 * BLOCK - 100 : 5 * BLOCK + 100] = codes[5 * BLOCK - 100]
+    elif case == "run_from_block_last_position":
+        codes[7 * BLOCK - 1 : 7 * BLOCK + 50] = codes[7 * BLOCK - 1]
+    elif case == "run_from_last_position_to_batch_end":
+        codes[-BLOCK - 1 :] = codes[-BLOCK - 1]
+    elif case == "batch_smaller_than_block":
+        codes = codes[:1000]
+    elif case == "m_not_block_multiple":
+        codes = codes[: 3 * BLOCK + 77]
+    elif case == "one_run_whole_batch":
+        codes = np.full(5 * BLOCK + 3, 12345)
+    elif case == "m_is_1":
+        codes = np.array([777])
+    elif case == "bands":
+        codes[:300] = -1
+        codes[300 : 2 * BLOCK] = cells  # the folded sentinel, over a block edge
+        codes[-BLOCK - 9 :] = IMAX
+    else:
+        raise ValueError(case)
+    return cells, codes
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", [
+    "run_longer_than_block", "run_across_block_boundary", "run_from_block_last_position",
+    "run_from_last_position_to_batch_end", "batch_smaller_than_block",
+    "m_not_block_multiple", "one_run_whole_batch", "m_is_1", "bands",
+])
+def test_kernel_block_edges(cuda, dtype, case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    cells, codes = _block_edge_case(case, rng)
+    plane = rng.integers(0, 256, size=cells).astype(np.uint8)
+    _kernel_vs_plain(plane, codes, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.int32, 1), (torch.int32, 2), (torch.int32, 3), (torch.int64, 1)])
+@pytest.mark.parametrize("m", [2, 5 * BLOCK + 11])
+def test_kernel_unaligned_codes_view(cuda, dtype, offset, m):
+    """A codes view at an offset that is not 16-byte aligned (as a row of the
+    sharded path's received buffer may be)."""
+    rng = np.random.default_rng(offset * 7 + m)
+    cells = 1 << 18
+    codes = np.sort(rng.integers(-2, cells + 2, size=m))
+    codes[m // 3 : m // 3 + min(m // 3, 600)] = codes[m // 3]
+    full = torch.cat([torch.full((offset,), -1, dtype=dtype),
+                      torch.from_numpy(codes).to(dtype)]).to(cuda)
+    view = full[offset:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    a = torch.from_numpy(rng.integers(0, 256, size=cells).astype(np.uint8)).to(cuda)
+    b = a.clone()
+    sweep.accumulate_sorted(a, view)
+    saturating_accumulate_sorted(b, view)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_kernel_int64_codes_above_2_31(cuda):
+    cells = (1 << 31) + (1 << 20)
+    rng = np.random.default_rng(31)
+    codes = rng.integers((1 << 31) - (1 << 16), cells + 100, size=80 * BLOCK)
+    codes[:2000] = (1 << 31) + 5  # a run above 2^31
+    codes[2000:2100] = (1 << 40)  # beyond the plane
+    codes = torch.from_numpy(np.sort(codes)).to(cuda)
+    a = torch.zeros(cells, dtype=torch.uint8, device=cuda)
+    a[(1 << 31) - (1 << 16) :] = torch.randint(
+        0, 256, ((1 << 20) + (1 << 16),), dtype=torch.uint8, device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    b = a.clone()
+    sweep.accumulate_sorted(a, codes)
+    saturating_accumulate_sorted(b, codes)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert int(a[(1 << 31) + 5]) == 255
 
 
 def test_index_cuda_matches_cpu(cuda, tmp_path):

@@ -257,9 +257,15 @@ def test_unfold_matches(kmer_len, monkeypatch):
     folded = rng.integers(0, 256, size=4**kmer_len // 2).astype(np.uint8)
     want = jrb.unfold_canonical(folded.copy(), kmer_len)
     assert np.array_equal(trb.unfold_canonical(folded.copy(), kmer_len), want)
-    # the numpy version used where the native library is absent
-    monkeypatch.setitem(sys.modules, "pykmer_tpu.io.native", None)
+    # the numpy version used where the port's native library is absent
+    calls = []
+    real = trb._rc_codes_np
+    monkeypatch.setattr(trb, "_rc_codes_np", lambda *a: calls.append(1) or real(*a))
     assert np.array_equal(trb.unfold_canonical(folded.copy(), kmer_len), want)
+    assert not calls  # the native unfold
+    monkeypatch.setitem(sys.modules, "pykmer_tpu_torch.io.native", None)
+    assert np.array_equal(trb.unfold_canonical(folded.copy(), kmer_len), want)
+    assert calls
 
 
 def test_write_and_hash_matches(tmp_path):

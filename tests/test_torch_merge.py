@@ -257,11 +257,30 @@ def test_merge_cuda_without_card_raises(tmp_path, kins):
         port_merge(str(tmp_path / "p"), kins[5][:2], engine="host", verbose=False)
 
 
+def _without_native(monkeypatch):
+    """Block both packages' native libraries; returns the names of the
+    validity counters the port's merge takes from then on (``pop`` is the
+    numpy version, ``popcount_buf_native`` the native one)."""
+    monkeypatch.setitem(sys.modules, "pykmer_tpu.io.native", None)
+    monkeypatch.setitem(sys.modules, "pykmer_tpu_torch.io.native", None)
+    taken = []
+    real = tmg._validity_ops
+
+    def spy(*args):
+        ops = real(*args)
+        taken.append(ops[1].__name__)
+        return ops
+
+    monkeypatch.setattr(tmg, "_validity_ops", spy)
+    return taken
+
+
 @pytest.mark.parametrize("engine", ["device", "host"])
 def test_merge_without_native_library_matches_jax(tmp_path, kins, monkeypatch, engine):
     """Without the native library both packages pack and count with numpy."""
-    monkeypatch.setitem(sys.modules, "pykmer_tpu.io.native", None)
+    taken = _without_native(monkeypatch)
     _both(tmp_path, kins[5], "host", engine, block_size=77)
+    assert taken and set(taken) == {"pop"}
 
 
 # ---- the per-block step ------------------------------------------------------
@@ -404,7 +423,7 @@ def test_pair_counts_match_original(tmp_path, kins, bounds):
 @pytest.mark.parametrize("native", [True, False])
 def test_host_engine_matches_original(kins, monkeypatch, native):
     if not native:
-        monkeypatch.setitem(sys.modules, "pykmer_tpu.io.native", None)
+        taken = _without_native(monkeypatch)
     paths = kins[7]
     want = jmg._pairwise_matrix_host(paths, 4**7, 2, 250, 1001, 3, False)
     got = tmg._pairwise_matrix_host(paths, 4**7, 2, 250, 1001, 3, False)
@@ -412,6 +431,8 @@ def test_host_engine_matches_original(kins, monkeypatch, native):
     dev = tmg._pairwise_matrix_device(paths, 4**7, 2, 250, 1001, 3, False,
                                       device=torch.device("cpu"))
     assert dev.dtype == np.int64 and np.array_equal(dev, want)
+    if not native:
+        assert taken and set(taken) == {"pop"}
 
 
 def test_merge_matches_pair_counts(tmp_path, kins):

@@ -28,7 +28,6 @@ from pykmer_tpu.config import IndexConfig
 from pykmer_tpu.formats.header import fast_counts256
 from pykmer_tpu.index import create_fasta_index as jax_create
 from pykmer_tpu.index import indexer as jix
-from pykmer_tpu.io import direct
 from pykmer_tpu.io.direct import DirectWriter
 from pykmer_tpu.ops import encode as jenc
 from pykmer_tpu.ops import readback as jrb
@@ -38,9 +37,10 @@ from pykmer_tpu_torch.config import resolve_strategy
 from pykmer_tpu_torch.host import chunks as tch
 from pykmer_tpu_torch.host import segments as tseg
 from pykmer_tpu_torch.index import indexer as tix
+from pykmer_tpu_torch.io import direct
 from pykmer_tpu_torch.ops import readback as trb
 
-native = pytest.importorskip("pykmer_tpu.io.native")
+native = pytest.importorskip("pykmer_tpu_torch.io.native")
 
 
 def _read(path):
@@ -296,8 +296,11 @@ def test_chased_tail_matches_jax(tmp_path, monkeypatch, kmer_len, use_native):
         want_hex = jrb._write_and_hash(fd, want)
     want_counts = fast_counts256(folded)
 
+    calls = []
+    real = trb._rc_codes_np
+    monkeypatch.setattr(trb, "_rc_codes_np", lambda *a: calls.append(1) or real(*a))
     if not use_native:
-        monkeypatch.setitem(sys.modules, "pykmer_tpu.io.native", None)
+        monkeypatch.setitem(sys.modules, "pykmer_tpu_torch.io.native", None)
     out = np.full(4**kmer_len, 77, dtype=np.uint8)
     tpath = str(tmp_path / "t.kin")
     slice_cells = folded.shape[0] // 5 + 3  # ragged last slice
@@ -308,6 +311,7 @@ def test_chased_tail_matches_jax(tmp_path, monkeypatch, kmer_len, use_native):
     assert _read(tpath) == _read(jpath)
     assert hex_ == want_hex
     assert np.array_equal(counts, want_counts)
+    assert bool(calls) != use_native  # the numpy unfold ran iff native was blocked
 
 
 def test_chased_tail_rejects_bad_shapes():
