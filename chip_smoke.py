@@ -69,16 +69,33 @@ Phases — each one passes or raises, and any failure exits non-zero:
    four block steps per block; (b) the genome at K=17 over 8 shards (eight
    1 GiB local planes, int32 local codes) and over 4 (int64 local codes),
    each `.kin` sha256 equal to phase 6's;
-11. a JSON line of the kernels, then the last line
+11. multi-host, two processes of one gloo ``torch.distributed`` job on the
+   one card (each its own CUDA context on ``cuda:0``, gloo on 127.0.0.1),
+   each process accumulating its byte range of the input: (a) the genome at
+   K=15 through ``python -m pykmer_tpu_torch index ... --coordinator
+   --num-processes 2 --process-id i`` with verify on, then through this
+   script's worker mode (``--mh-worker``: ``create_fasta_index_multihost``,
+   one JSON line of the sweep's launches and peak memories a process, its
+   stage table on stderr); (b) the gzip -1 copy through the CLI (staged by
+   process 0, no ``*.inflated.tmp*`` left); (c) the genome at K=17 in worker mode, each
+   process holding a full 8 GiB folded plane on the card. The `.kin`
+   sha256 of (a) and (b) is phase 4's and of (c) phase 6's; the launches
+   summed over the processes equal the steps of each process's byte range
+   times (R·S)^2; process 0's received rows of one step are timed kernel
+   against plain; each process's wall and stage table are logged, and at
+   K=17 its peak device memory and peak host RSS. A worker that fails or
+   times out fails the phase, and every worker is reaped;
+12. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 7-9 run between phases 2 and 3 (7, with 10c) and after phase 5 (8,
-9); 10a and 10d run after phase 9, 10b after phase 6. The
+9); 10a and 10d run after phase 9, 10b after phase 6, 11 after 10b. The
 script exits non-zero, printing no result, where CUDA is unavailable or
 outside a checkout of the repository. It never imports jax. Scratch files go
 under ``build/smoke`` (git-ignored) and are removed at the end. It needs
 about 35 GiB of free disk there (two 1 GiB K=15 files, one 16 GiB K=17 file
-at a time) and 40 GiB of host memory.
+at a time) and 60 GiB of host memory (phase 11c: two processes, each with
+its 8 GiB partial plane and 4 GiB of combined pieces).
 """
 
 import contextlib
@@ -112,6 +129,8 @@ MERGE_SHARDS = 4
 # K=17 shard counts: eight 1 GiB local planes take int32 local codes, four
 # 2 GiB planes (over 2^31 - 1 cells) the int64 launcher
 K17_SHARDS = (8, 4)
+MH_PROCESSES = 2  # processes of the multi-host job (phase 11), on the one card
+MH_TIMEOUT_S = 400  # a multi-host run's limit: its workers are killed after it
 
 
 def log(msg):
@@ -910,7 +929,6 @@ def phase_serve(work, dev, genome, gz, want_sha, want_kmers):
     for kin in kins:
         os.remove(kin)
         os.remove(kin + ".json")
-    os.remove(gz)
 
 
 def merged_us(intervals):
@@ -1181,8 +1199,246 @@ def phase_sharded_k17(dev, genome, total_bp, want_sha):
                                  f"launches of {launches}, expected {want_i64}")
 
 
+def mh_worker(argv):
+    """Worker mode (``--mh-worker <pid> <nproc> <port> <input> <K>``): one
+    process of a multi-host build on ``cuda:0`` through
+    ``create_fasta_index_multihost``, verify on; prints one JSON line of its
+    wall, the sweep's launches, peak device memory and peak host RSS
+    (sampled). Its stage table goes to stderr (``PYKMER_TPU_STAGE_TIMING``,
+    set by the caller)."""
+    import torch
+
+    from pykmer_tpu_torch.index import create_fasta_index_multihost
+    from pykmer_tpu_torch.ops import sweep
+
+    peak_rss = rss_sampler()
+    pid, nproc, port, path, k = int(argv[0]), int(argv[1]), argv[2], argv[3], int(argv[4])
+    dev = torch.device("cuda", 0)
+    sweep.LAUNCHES = sweep.LAUNCHES_I64 = 0
+    t0 = time.perf_counter()
+    header = create_fasta_index_multihost(
+        path, "s", path, k, coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
+        process_id=pid, verbose=False, device=dev, local_devices=[dev])
+    wall = time.perf_counter() - t0
+    launches, launches_i64 = sweep.LAUNCHES, sweep.LAUNCHES_I64
+    print(json.dumps({
+        "pid": pid, "wall_s": wall, "launches": launches, "launches_i64": launches_i64,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "peak_rss_bytes": peak_rss(),  # sampled every 50 ms
+        "header": header is not None,
+    }), flush=True)
+    return 0
+
+
+def rss_sampler(period_s=0.05):
+    """Start sampling this process's resident set from ``/proc/self/statm``
+    every ``period_s``; returns a function giving the peak in bytes so far,
+    or None where statm cannot be read. (``ru_maxrss`` keeps the parent's
+    high-water mark across fork and exec, and the card's machine shows no
+    ``VmHWM``.)"""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    peak = [None]
+
+    def sample():
+        while True:
+            try:
+                with open("/proc/self/statm") as fh:
+                    rss = int(fh.read().split()[1]) * page
+            except (OSError, ValueError, IndexError):
+                return
+            peak[0] = max(peak[0] or 0, rss)
+            time.sleep(period_s)
+
+    threading.Thread(target=sample, daemon=True).start()
+    return lambda: peak[0]
+
+
+def run_job(argvs, work, label, env_extra=None):
+    """The processes of one multi-host job, ``python <argv>`` each, from the
+    checkout: all started together, waited for, the rest killed 20 s after
+    one fails and all at ``MH_TIMEOUT_S``; no process outlives the call.
+    Raises unless every process exits 0. Returns (wall s, [(stdout,
+    stderr)])."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **(env_extra or {}))
+    logs = [[open(os.path.join(work, f"mh{i}.{tag}"), "w+") for tag in ("out", "err")]
+            for i in range(len(argvs))]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for argv, (out, err) in zip(argvs, logs):
+            procs.append(subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                                          stdout=out, stderr=err))
+        t_end = t0 + MH_TIMEOUT_S
+        while any(p.poll() is None for p in procs) and time.perf_counter() < t_end:
+            if any(p.poll() not in (None, 0) for p in procs):
+                t_end = min(t_end, time.perf_counter() + 20)
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for out, err in logs:
+        texts.append(tuple(f.seek(0) or f.read() for f in (out, err)))
+        out.close()
+        err.close()
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * len(procs):
+        raise RuntimeError(f"multi-host {label}: exit codes {rcs}\n" + "\n".join(
+            f"--- process {i}:\n{o[-2000:]}\n{e[-3000:]}" for i, (o, e) in enumerate(texts)))
+    return wall, texts
+
+
+def mh_frames(genome, pid, k, cw):
+    """Process ``pid``'s share of a multi-host job over ``genome``: its
+    record-aligned byte range, decoded and framed as the job frames it.
+    Returns (padded stream, number of chunks), or (None, 0) for no k-mer."""
+    import numpy as np
+
+    from pykmer_tpu_torch.host.chunks import chunk_stream
+    from pykmer_tpu_torch.host.decode import decode_joined_bytes
+    from pykmer_tpu_torch.parallel.multihost import host_byte_slice
+
+    lo, hi = host_byte_slice(genome, pid, MH_PROCESSES)
+    with open(genome, "rb") as fh:
+        fh.seek(lo)
+        stream, _, _ = decode_joined_bytes(np.frombuffer(fh.read(hi - lo), np.uint8), k,
+                                           tail_headroom=cw + k)
+    return chunk_stream(stream, k, cw) if stream.shape[0] >= k else (None, 0)
+
+
+def mh_rows_times(dev, genome, k, cw):
+    """Process 0's received rows of one step of the K=15 job (its byte
+    range's middle step, a one-card local mesh): one sweep launch per row on
+    a zeroed local plane against the plain sweep (checked equal), median
+    device ms (CUDA events). Returns (max abs err, kernel ms, plain ms,
+    bound ms)."""
+    import torch
+
+    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
+    from pykmer_tpu_torch.parallel import histogram, make_mesh
+
+    padded, n_chunks = mh_frames(genome, 0, k, cw)
+    mesh = make_mesh(devices=[dev])
+    _, step = histogram.make_sharded_accumulate(mesh, k, cw)
+    bases, mask = (torch.from_numpy(a[0]).to(dev) for a in histogram.shard_batch_chunks_packed(
+        padded, k, cw, step.rows, n_chunks // 2))
+    rows = list(step.exchange([[step.bucket(bases, mask)[0]]])[0][0])
+    planes = [torch.zeros(step.local_size, dtype=torch.uint8, device=dev) for _ in range(2)]
+    for row in rows:
+        sweep.accumulate_sorted(planes[0], row)
+        saturating_accumulate_sorted(planes[1], row)
+    torch.cuda.synchronize()
+    err = max_abs_err(planes[0], planes[1])
+    if err:
+        raise AssertionError(f"multi-host rows: kernel != plain (max abs err {err})")
+    t_kernel = [median_ms(lambda: [sweep.accumulate_sorted(planes[0], r) for r in rows], 10)]
+    t_plain = [median_ms(lambda: [saturating_accumulate_sorted(planes[1], r) for r in rows], 5)]
+    t_kernel.append(median_ms(lambda: [sweep.accumulate_sorted(planes[0], r) for r in rows], 10))
+    bound, sectors, moved = sweep_bound_ms(rows, step.local_size)
+    log(f"multi-host rows, process 0's step {n_chunks // 2} of {n_chunks}: {len(rows)} row(s) "
+        f"of {rows[0].numel()} {rows[0].dtype} codes on a {step.local_size}-cell plane, kernel "
+        f"== plain; median ms kernel {t_kernel}, plain {t_plain}; bound {bound:.4f} ms "
+        f"({sectors} distinct sectors, {moved} bytes)")
+    del planes, rows, bases, mask
+    torch.cuda.empty_cache()
+    return err, min(t_kernel), min(t_plain), bound
+
+
+def phase_multihost(work, dev, genome, gz, total_bp, sha15, sha17):
+    """Phase 11: two processes of one gloo job on the one card. (a) K=15
+    through the CLI, then in worker mode; (b) the gzip -1 copy through the
+    CLI; (c) K=17 in worker mode. Returns (summed K=15 launches, the rows'
+    (err, ms, plain ms, bound ms))."""
+    import glob
+
+    import torch
+
+    from pykmer_tpu_torch.index.sharded import SHARDED_CHUNK_WINDOWS as cw
+
+    torch.cuda.empty_cache()  # the card's memory goes to the workers
+    n = MH_PROCESSES
+    timing = {"PYKMER_TPU_STAGE_TIMING": "1"}
+
+    def log_tables(label, texts):
+        for pid, (_, err) in enumerate(texts):
+            log(f"multi-host {label}, process {pid}: "
+                + "\n".join(ln for ln in err.splitlines() if "socket.cpp" not in ln))
+
+    def cli_job(path, k, label):
+        port = free_port()
+        wall, texts = run_job(
+            [["-m", "pykmer_tpu_torch", "index", path, "s", str(k), "--quiet",
+              "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+              "--process-id", str(pid)] for pid in range(n)],
+            work, label, env_extra=timing)
+        meta = take_outputs(path + f".{k:02d}.kin")
+        log_tables(label, texts)
+        log(f"multi-host {label}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
+            f"({n} processes on {dev}, started together; verify on), output sha256 "
+            f"{meta['output_file_cheksum']}")
+        return meta
+
+    def worker_job(k, label, want_sha):
+        port = free_port()
+        wall, texts = run_job(
+            [[os.path.join(ROOT, "chip_smoke.py"), "--mh-worker", str(pid), str(n), str(port),
+              genome, str(k)] for pid in range(n)], work, label, env_extra=timing)
+        meta = take_outputs(genome + f".{k:02d}.kin")
+        res = [json.loads(out.strip().splitlines()[-1]) for out, _ in texts]
+        log_tables(label, texts)
+        for r in res:
+            log(f"multi-host {label}, process {r['pid']}: " + json.dumps(r))
+        # a one-card local mesh (R·S = 1): one received row a step, a step a chunk
+        steps = [mh_frames(genome, pid, k, cw)[1] for pid in range(n)]
+        launches = sum(r["launches"] for r in res)
+        launches_i64 = sum(r["launches_i64"] for r in res)
+        log(f"multi-host {label}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
+            f"(verify on), steps per process {steps}, {launches} sweep launches "
+            f"({launches_i64} int64), output sha256 {meta['output_file_cheksum']}")
+        if meta["output_file_cheksum"] != want_sha:
+            raise AssertionError(f"multi-host {label}: .kin sha256 differs from the "
+                                 f"single-card run's")
+        want_i64 = sum(steps) if 4**k // 2 > 2**31 - 1 else 0
+        if launches != sum(steps) or launches_i64 != want_i64 \
+                or [r["header"] for r in res] != [True] + [False] * (n - 1):
+            raise AssertionError(f"multi-host {label}: {launches} launches ({launches_i64} "
+                                 f"int64) for steps {steps}")
+        return launches, res
+
+    meta = cli_job(genome, SLICE_K, f"K={SLICE_K} via the CLI")
+    if meta["output_file_cheksum"] != sha15:
+        raise AssertionError("multi-host K=15 via the CLI: .kin sha256 differs from phase 4's")
+    launches, _ = worker_job(SLICE_K, f"K={SLICE_K} worker mode", sha15)
+    meta = cli_job(gz, SLICE_K, f"K={SLICE_K} gzip -1 copy via the CLI")
+    left = glob.glob(gz + ".*.inflated.tmp*")
+    if meta["output_file_cheksum"] != sha15 or left:
+        raise AssertionError(f"multi-host gzip -1 copy: sha256 or staged files {left}")
+    os.remove(gz)
+    log(f"disk free before the K={BIG_K} multi-host run: {shutil.disk_usage(work).free} bytes")
+    worker_job(BIG_K, f"K={BIG_K} worker mode", sha17)
+    return launches, mh_rows_times(dev, genome, SLICE_K, cw)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main():
     sys.modules["jax"] = None  # any jax import below fails loudly
+    if sys.argv[1:2] == ["--mh-worker"]:
+        sys.path.insert(0, ROOT)
+        return mh_worker(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -1229,6 +1485,7 @@ def main():
         phase_k17_oracle(work, dev, small_fa)
         launches_i64, replay_err, k17_sha = phase_k17(work, dev, genome)
         phase_sharded_k17(dev, genome, total_bp, k17_sha)
+        mh_launches, mh_rows = phase_multihost(work, dev, genome, gz, total_bp, sha, k17_sha)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1242,7 +1499,10 @@ def main():
             # received rows of one step, one launch each, kernel vs plain
             ("sweep_sorted_sharded_rows", sharded[f"mesh 1x4 on {dev}"][1],
              (sharded_err, min(rows_1x4["rows_kernel_ms"], rows_1x4["rows_kernel_ms_2"]),
-              rows_1x4["rows_plain_ms"], rows_1x4["rows_bound_ms"]))):
+              rows_1x4["rows_plain_ms"], rows_1x4["rows_bound_ms"])),
+            # the multi-host path's launches (the K=15 worker-mode job, summed
+            # over its processes); times: process 0's received rows of one step
+            ("sweep_sorted_multihost", mh_launches, mh_rows)):
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -4,6 +4,7 @@
         [--chunk-windows N] [--accumulate auto|device|host] [--bgzip]
         [--no-verify] [--no-overwrite] [--quiet] [--device cuda]
         [--shards S] [--data-parallel R] [--checkpoint-every N]
+        [--coordinator HOST:PORT --num-processes N --process-id I]
     python -m pykmer_tpu_torch index-batch <K> <a.fa> <b.fa> ...
         [--overwrite] [--chunk-windows N] [--accumulate auto|device|host]
         [--bgzip] [--no-verify] [--quiet] [--device cuda]
@@ -24,9 +25,11 @@ The argument names and exit codes are those of ``pykmer_tpu.cli``.
 package's JAX-free functions. ``index --shards/--data-parallel/
 --checkpoint-every`` runs the sharded index on a mesh of ``--device``'s
 type (on CUDA it needs S·R visible cards), and ``merge --shards`` the
-sharded compare. The multi-host flags (``--coordinator``,
-``--num-processes``, ``--process-id``) are accepted so that they answer "not
-yet ported" (exit code 2) instead of an argparse error.
+sharded compare. ``index --coordinator/--num-processes`` runs one process of
+a multi-host build (a gloo ``torch.distributed`` job; run the same command
+on every process with its own ``--process-id``): process 0 writes the `.kin`
+and every other process exits 0 once its share is written. ``--process-id``
+alone builds the ordinary single-host `.kin`, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -80,10 +83,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel rows of the mesh")
     p.add_argument("--checkpoint-every", type=int, default=None,
                    help="checkpoint the sharded state every N steps")
-    # multi-host runs: not yet ported
-    p.add_argument("--coordinator", default=None)
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of the multi-host job's process 0 (gloo) — "
+                        "run this same command on every process of the job")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="process count of the multi-host job")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index in the multi-host job")
 
     p = sub.add_parser("index-batch", help="index many FASTAs in one process")
     p.add_argument("kmer_len", type=int)
@@ -157,12 +163,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _not_ported(what: str) -> int:
-    print(f"error: {what} is not yet ported to pykmer_tpu_torch; "
-          "use python -m pykmer_tpu", file=sys.stderr)
-    return 2
-
-
 def _config(args) -> IndexConfig:
     return IndexConfig(kmer_len=args.kmer_len, chunk_windows=args.chunk_windows,
                        accumulate=args.accumulate)
@@ -172,16 +172,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
     if args.command == "index":
-        if args.coordinator or args.num_processes or args.process_id is not None:
-            return _not_ported("multi-host index "
-                               "(--coordinator/--num-processes/--process-id)")
         try:
             cfg = _config(args)
         except ValueError as exc:
             print(f"error: {exc}", file=sys.stderr)
             return 2
         from_stdin = args.input_file == "-"
-        if args.shards or args.data_parallel > 1 or args.checkpoint_every:
+        if args.coordinator or args.num_processes:
+            if from_stdin:
+                print("error: stdin input ('-') is not supported for "
+                      "multi-host jobs", file=sys.stderr)
+                return 2
+            from .index import create_fasta_index_multihost
+
+            header = create_fasta_index_multihost(
+                args.input_file, args.sample_name, args.input_file,
+                args.kmer_len, overwrite=not args.no_overwrite, config=cfg,
+                n_shards_local=args.shards, n_data_local=args.data_parallel,
+                coordinator_address=args.coordinator,
+                num_processes=args.num_processes, process_id=args.process_id,
+                checkpoint_every=args.checkpoint_every,
+                verify=not args.no_verify, verbose=not args.quiet, device=args.device,
+            )
+            if header is None:  # a non-zero process of the job
+                return 0
+        elif args.shards or args.data_parallel > 1 or args.checkpoint_every:
             if from_stdin:
                 print("error: stdin input ('-') is not supported with "
                       "--shards/--data-parallel/--checkpoint-every",

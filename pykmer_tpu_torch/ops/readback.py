@@ -14,6 +14,9 @@ each output slice [a, b) (a, b multiples of S) is assembled as
 first shard's device. No device and no host buffer ever holds the whole flat
 plane beyond the 4^K output.
 
+:func:`plane_to_host` copies the folded plane (or the interleave) into a
+host array through the same slices, for the multi-host build's combine.
+
 Port of the raw path of ``pykmer_tpu/ops/readback.py`` (``_ChaseSink``,
 ``unfold_range``, ``stream_dense_to_out``). The JAX package's packed, sparse
 and escape readback modes exist for a slow host link and are not ported.
@@ -115,6 +118,46 @@ def pwrite_all(fd, arr: np.ndarray, offset: int) -> None:
         n = os.pwrite(fd, view, pos)
         view = view[n:]
         pos += n
+
+
+def unfold_piece(
+    folded_piece: np.ndarray, kmer_len: int, g0: int
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Expand folded cells [g0, g0+n) WITHOUT the full 4^K output buffer.
+
+    Returns (primary, mirror, mirror_offset): the piece's two contiguous
+    unfolded regions — primary belongs at offset ``g0``, mirror at
+    ``mirror_offset = 4^K - g0 - n``. The multi-host writer pwrites each
+    host's owner pieces directly into the shared output file, so no host
+    materialises the whole plane (index/multihost).
+
+    Copy of ``pykmer_tpu/ops/readback.py::unfold_piece``."""
+    n = folded_piece.shape[0]
+    size = 4**kmer_len
+    m = size - 1
+    assert g0 + n <= size // 2
+    primary = np.empty(n, dtype=np.uint8)
+    mirror = np.empty(n, dtype=np.uint8)
+    try:
+        from ..io.native import unfold_canonical_piece_native
+
+        unfold_canonical_piece_native(
+            np.ascontiguousarray(folded_piece), primary, mirror, kmer_len, g0
+        )
+        return primary, mirror, size - g0 - n
+    except ImportError:
+        pass
+    block = 1 << 22
+    for blo in range(0, n, block):
+        bhi = min(n, blo + block)
+        u = np.arange(g0 + blo, g0 + bhi, dtype=np.uint64)
+        canon = u <= _rc_codes_np(u, kmer_len)
+        vals = folded_piece[blo:bhi]
+        primary[blo:bhi] = np.where(canon, vals, 0)
+        # mirror cells [m-(g0+bhi-1), m-(g0+blo)] in descending-u order →
+        # positions [n-bhi, n-blo) of the mirror buffer
+        mirror[n - bhi : n - blo] = np.where(canon, 0, vals)[::-1]
+    return primary, mirror, size - g0 - n
 
 
 class ChaseSink:
@@ -285,3 +328,30 @@ def stream_plane_to_out(
         raise
     finally:
         slices.close()
+
+
+def plane_to_host(
+    plane: Union[torch.Tensor, Sequence[torch.Tensor]], slice_cells: int = SLICE_CELLS
+) -> np.ndarray:
+    """The flat folded ``plane`` (or the interleave of a sharded run's S
+    local planes, as in :func:`stream_plane_to_out`) copied into a new host
+    array, slice by slice: the multi-host build's partial plane
+    (index/multihost), which combines folded."""
+    shards = [plane] if isinstance(plane, torch.Tensor) else list(plane)
+    half = sum(p.shape[0] for p in shards)
+    bounds = _slice_bounds(half, slice_cells)
+    view = (lambda lo, hi: shards[0][lo:hi]) if len(shards) == 1 else _interleaved(shards)
+    dev = shards[0].device
+    if dev.type == "cpu":
+        slices = (view(lo, hi).numpy() for lo, hi in bounds)
+    elif dev.type == "cuda":
+        slices = _cuda_slices(view, dev, bounds)
+    else:
+        raise ValueError(f"no readback from device {dev}")
+    out = big_empty(half)
+    try:
+        for (lo, hi), part in zip(bounds, slices):
+            out[lo:hi] = part
+    finally:
+        slices.close()
+    return out

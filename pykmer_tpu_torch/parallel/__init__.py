@@ -1,10 +1,12 @@
-"""Multi-device runs of the port: one process driving a grid of devices.
+"""Multi-device runs of the port: one process driving a grid of devices, and
+several such processes in one ``torch.distributed`` job.
 
 - ``mesh``        : the ``[n_data, n_shards]`` device grid
 - ``collectives`` : all_to_all, all_gather, psum and pmax as explicit copies
 - ``histogram``   : the count-space-sharded step of the index path
 - ``compare``     : the sharded block step of the merge
-- ``multihost``   : shard checkpoints (the rest of multi-host is not yet ported)
+- ``multihost``   : the process group, input splitting across hosts, the
+                    exact saturating cross-host combine, shard checkpoints
 """
 
 from .mesh import DATA_AXIS, SHARD_AXIS, Mesh, make_mesh

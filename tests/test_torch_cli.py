@@ -1,14 +1,17 @@
-"""The port's CLI subcommands merge, distance, kwip, gzi, testgen and bgzip
-vs ``python -m pykmer_tpu`` (JAX) on the same inputs: equal exit codes,
-equal output files and equal printed output."""
+"""The port's CLI subcommands merge, distance, kwip, gzi, testgen and bgzip,
+and ``index`` with the multi-host flags in a single process, vs ``python -m
+pykmer_tpu`` (JAX) on the same inputs: equal exit codes, equal output files
+and equal printed output."""
 
 import gzip
+import json
 import os
 
 import numpy as np
 import pytest
 
 from conftest import make_random_fasta
+from reference_runner import VOLATILE_KIN_JSON_KEYS
 
 from pykmer_tpu import cli as jcli
 from pykmer_tpu.index import create_fasta_index
@@ -172,3 +175,40 @@ def test_cli_bgzip_matches_jax(tmp_path, monkeypatch, capsys, flags):
             os.remove(f)
     assert outs[0] == outs[1]
     assert outs[1][2] == ("--delete" not in flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--process-id", "0"],
+    ["--num-processes", "1"],
+    ["--num-processes", "1", "--process-id", "0", "--bgzip"],
+])
+def test_cli_index_multihost_flags_in_one_process_match_jax(tmp_path, monkeypatch, capsys,
+                                                            flags):
+    """``--process-id`` alone builds the ordinary single-host `.kin`;
+    ``--num-processes 1`` runs the one-process multi-host path. Either way
+    the files are the JAX CLI's (`.kin.json` up to its creation times)."""
+    monkeypatch.chdir(tmp_path)
+    fa = make_random_fasta("ix.fa", np.random.default_rng(63), n_records=3,
+                           lengths=(500, 90, 700))
+    (rc_j, files_j, _), (rc_t, files_t, _) = _cli_both(
+        ["index", fa, "s", "11", "--quiet", *flags], capsys)
+    assert rc_j == rc_t == 0
+    assert set(files_t) == set(files_j)
+    assert {"ix.fa.11.kin", "ix.fa.11.kin.json"} <= set(files_t)
+    assert ("ix.fa.11.kin.bgz" in files_t) == ("--bgzip" in flags)
+    for name in files_j:
+        if name.endswith(".json"):
+            got, want = json.loads(files_t[name]), json.loads(files_j[name])
+            assert set(got) == set(want)
+            for key in set(want) - VOLATILE_KIN_JSON_KEYS:
+                assert got[key] == want[key], key
+        else:
+            assert files_t[name] == files_j[name], name
+
+
+def test_cli_index_multihost_refuses_stdin(capsys):
+    for main in (jcli.main, tcli.main):
+        capsys.readouterr()
+        assert main(["index", "-", "s", "5", "--coordinator", "127.0.0.1:1",
+                     "--num-processes", "2", "--process-id", "0"]) == 2
+        assert "not supported for multi-host jobs" in capsys.readouterr().err

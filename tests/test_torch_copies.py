@@ -8,7 +8,9 @@ here against their originals.
   ``scripts.*`` or jax;
 - each copy's code is its original's (docstrings aside), but for the native
   library's build, the profiling hooks and the merged ``config``; the C++
-  source is byte-identical;
+  source is byte-identical; single copied functions (multi-host input
+  splitting and combine helpers, ``unfold_piece``) are compared function by
+  function;
 - on seeded inputs both give the same bytes: `.kin.json` headers, `.kin`
   and `.kma` files, bgzf files and `.gzi` indexes, FASTA decodes (plain, gz,
   bgz), every native function, ``sha256_file``, ``big_empty``, the oracle's
@@ -142,6 +144,36 @@ def test_copy_is_faithful(rel):
         assert stage_timer(port) == stage_timer(orig)
     else:
         assert _body(port) == _body(orig)
+
+
+# copies of single functions in modules that are otherwise the port's own:
+# (path under each package, function names)
+FUNCTION_COPIES = [
+    ("parallel/multihost.py", ["host_slice", "_record_boundary", "host_byte_slice",
+                               "host_byte_slice_bgzf", "combine_partial_dense"]),
+    ("ops/readback.py", ["unfold_piece"]),
+    ("index/multihost.py", ["_stage_inflated", "_hash_and_counts"]),
+]
+
+
+def _function(path, name):
+    """(docstring, AST dump of the signature and of the body without its
+    docstring) of the module-level function ``name``."""
+    fn = next(n for n in ast.parse(_read(path)).body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    doc = ast.get_docstring(fn)
+    body = fn.body[1:] if doc is not None else fn.body
+    return doc or "", [ast.dump(fn.args), ast.dump(fn.returns) if fn.returns else None,
+                       [ast.dump(d) for d in fn.decorator_list]] + [ast.dump(n) for n in body]
+
+
+@pytest.mark.parametrize("rel,name", [(rel, name) for rel, names in FUNCTION_COPIES
+                                      for name in names])
+def test_function_copy_is_faithful(rel, name):
+    port_doc, port = _function(os.path.join(PORT_PKG, rel), name)
+    _, orig = _function(os.path.join(JAX_PKG, rel), name)
+    assert f"pykmer_tpu/{rel}::{name}" in " ".join(port_doc.split())  # names its original
+    assert port == orig
 
 
 def test_native_source_is_a_copy():

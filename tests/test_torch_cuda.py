@@ -403,6 +403,30 @@ def test_sharded_index_and_merge_across_cards(cards4, tmp_path):
     assert np.array_equal(single, sharded)
 
 
+def test_multihost_two_processes_on_one_card(cuda, tmp_path):
+    """A two-process K=11 job with both ranks on ``cuda:0`` (gloo between
+    them, each its own CUDA context): the `.kin` and stats of the single-card
+    index, and the sweep launched in both workers."""
+    import json
+
+    from test_torch_multihost import run_workers
+
+    fasta = _genome(str(tmp_path / "mh.fa"), np.random.default_rng(12), n_records=6)
+    cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 14)
+    want = _kin(create_fasta_index(fasta, "mh", fasta, 11, config=cfg, verbose=False,
+                                   device=cuda))
+    results = run_workers(2, "index", [fasta, 11, 1 << 14, 0, 0, -1, "cuda:0"], timeout=300)
+    for rc, out in results:
+        assert rc == 0, out
+    launches = [int(out.split("launches=")[1].split()[0]) for _, out in results]
+    assert all(n > 0 for n in launches), launches
+    with open(fasta + ".11.kin", "rb") as fh:
+        assert fh.read() == want[0]
+    with open(fasta + ".11.kin.json") as fh:
+        meta = json.load(fh)
+    assert (meta["num_kmers"], meta["hist"]) == want[1:]
+
+
 @pytest.mark.parametrize("extra", [[], ["--shards", "1"]])
 def test_cli_index_on_a_named_card_in_a_new_process(cuda, tmp_path, extra):
     """``--device cuda:0`` in a new process, single-device and sharded: the

@@ -151,9 +151,10 @@ def test_cli_index_matches_jax(tmp_path):
 
 
 def test_cli_rejects_and_defers(tmp_path, capsys):
-    assert cli.main(["index", "x.fa", "s", "7", "--coordinator", "h:1",
+    assert cli.main(["index", "-", "s", "7", "--coordinator", "h:1",
                      "--num-processes", "2"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "stdin input ('-') is not supported for multi-host jobs" in \
+        capsys.readouterr().err
     assert cli.main(["index", "x.fa", "s", "7", "--chunk-windows", "100"]) == 2
     if not torch.cuda.is_available():
         fasta = make_random_fasta(str(tmp_path / "d.fa"), np.random.default_rng(1))

@@ -56,7 +56,8 @@ DEVICE_COMMANDS = ("index", "merge")
 # notes of their own engines)
 PRINTING = ("read", "distance", "kwip", "gzi", "testgen", "bgzip")
 
-_SCRIPT = r"""
+# refuses jax, jaxlib and pykmer_tpu in the interpreter that runs it first
+_BLOCK = r"""
 import importlib.abc
 import sys
 
@@ -70,6 +71,9 @@ class _Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, _Refuse())
+"""
+
+_SCRIPT = _BLOCK + r"""
 import io, json, os, shutil
 from contextlib import redirect_stdout
 
@@ -80,6 +84,7 @@ from pykmer_tpu_torch.config import IndexConfig
 from pykmer_tpu_torch.formats import header, kin, kma
 from pykmer_tpu_torch.host import chunks, decode, pipeline, segments
 from pykmer_tpu_torch.index import create_fasta_index_sharded, index_batch, read_fasta_index
+from pykmer_tpu_torch.index import multihost as multihost_index
 from pykmer_tpu_torch.index import sharded as sharded_index
 from pykmer_tpu_torch.io import bgzf, direct, fasta, gzi, native
 from pykmer_tpu_torch.merge import merge, pair_counts_stream
@@ -210,3 +215,39 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path, monkeypatch):
         assert name in got_files, name
     for name, data in want_files.items():
         assert got_files[name] == data, name
+
+
+# one process of a multi-host CLI job, jax and pykmer_tpu blocked
+_MH_WORKER = _BLOCK + r"""
+from pykmer_tpu_torch import cli
+
+rc = cli.main(sys.argv[1:])
+leaked = sorted(n for n in sys.modules
+                if n.split(".")[0] in ("jax", "jaxlib", "pykmer_tpu"))
+assert not leaked, leaked
+sys.exit(rc)
+"""
+
+
+def test_multihost_cli_job_runs_without_jax(tmp_path, monkeypatch):
+    """Two processes of ``index --coordinator ... --num-processes 2`` on the
+    CPU, each with jax and pykmer_tpu blocked: the `.kin` and `.kin.json` of
+    the JAX CLI's single-process build."""
+    from test_torch_multihost import free_port, run_processes
+
+    monkeypatch.chdir(tmp_path)
+    make_random_fasta("mh.fa", np.random.default_rng(5), n_records=3,
+                      lengths=(600, 1100, 300))
+    argv = ["index", "mh.fa", "s", "5", "--quiet", "--chunk-windows", "128"]
+    assert jcli.main(argv) == 0
+    want = _take_outputs({"mh.fa"})
+    port = free_port()
+    results = run_processes(
+        [["-c", _MH_WORKER, *argv, "--device", "cpu", "--coordinator", f"127.0.0.1:{port}",
+          "--num-processes", "2", "--process-id", str(pid)] for pid in range(2)],
+        cwd=str(tmp_path))
+    for rc, out in results:
+        assert rc == 0, out
+    got = _take_outputs({"mh.fa"})
+    assert sorted(got) == sorted(want) == ["mh.fa.05.kin", "mh.fa.05.kin.json"]
+    assert got == want

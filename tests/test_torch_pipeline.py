@@ -461,20 +461,18 @@ def test_cli_index_batch_matches_jax(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--shards", "2"], ["--data-parallel", "2"], ["--checkpoint-every", "3"],
-    ["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "0"],
+    ["--num-processes", "1", "--process-id", "0", "--shards", "2"],
 ])
 def test_cli_multi_device_flags_not_ported(tmp_path, capsys, flags):
-    """The multi-host flags still answer "not yet ported" (exit 2); the
-    sharded flags run the sharded index, whose `.kin` is the single-device
-    run's."""
+    """No multi-device flag answers "not yet ported" any more: the sharded
+    flags run the sharded index and the multi-host flags (one process here;
+    tests/test_torch_multihost*.py run real jobs) the multi-host index, and
+    each `.kin` is the single-device run's."""
     fasta = make_random_fasta(str(tmp_path / "m.fa"), np.random.default_rng(33))
     kin = fasta + ".05.kin"
     rc = tcli.main(["index", fasta, "s", "5", "--device", "cpu", "--quiet",
                     "--chunk-windows", "64", *flags])
-    if "--coordinator" in flags:
-        assert rc == 2 and "not yet ported" in capsys.readouterr().err
-        assert not os.path.exists(kin)
-        return
+    assert "not yet ported" not in capsys.readouterr().err
     assert rc == 0
     sharded = _read(kin)
     assert tcli.main(["index", fasta, "s", "5", "--device", "cpu", "--quiet",
