@@ -27,7 +27,15 @@ Phases — each one passes or raises, and any failure exits non-zero:
    pipeline frames, and a replay of the same chunks with the plain sweep
    gives the same `.kin` byte for byte; a gzip -1 copy of the genome (the
    pipelined path that reads the input whole) and the host strategy give the
-   same `.kin` sha256;
+   same `.kin` sha256; then the readback modes on the replay's plane:
+   ``fetch_dense`` in every mode ``torch.equal`` to the plane, the escape
+   counts and the JAX package's choice (``packing.pick_mode``), and each
+   device op of the modes timed with CUDA events;
+4b. the genome at K=15 in this process through ``create_fasta_index`` with
+   ``IndexConfig(readback=...)`` raw, packed, 2bit, 3bit, sparse, raw again:
+   each `.kin` sha256 phase 4's, each stage table logged, and whether the
+   sparse run's segments overflowed the token caps and took the 2-bit
+   fallback;
 5. where the time goes: one chunk's steps timed with CUDA events, then a
    second index run of the genome under ``torch.profiler``, whose device
    activity (kernels and copies, overlaps merged) gives the busy and idle
@@ -35,11 +43,19 @@ Phases — each one passes or raises, and any failure exits non-zero:
 6. K=17 (an 8 GiB folded plane on the card, int64 codes): phase 3's small
    FASTA through the CLI, every nonzero cell of its 16 GiB `.kin` equal to
    the sparse numpy oracle's counts and no other cell nonzero; then the
-   genome through the CLI with verify on, with its stage table, bp/s and peak
-   device memory; the int64 launches equal the chunk count, and a replay of
+   genome through the CLI with verify on (``readback="auto"``: the pieces
+   tail), with its stage table, bp/s and peak device memory; the int64
+   launches equal the chunk count, and a replay of
    the same chunks gives a kernel plane equal to the plain-sweep plane
-   (``torch.equal`` on the card) whose stats are the `.kin`'s. Each 16 GiB
-   `.kin` is removed as soon as it is checked;
+   (``torch.equal`` on the card) whose stats are the `.kin`'s; the readback
+   modes on that plane as in phase 4. Each 16 GiB `.kin` is removed as soon
+   as it is checked;
+6b. the genome at K=17 in a fresh process each (``--index-worker``:
+   ``create_fasta_index``), ``readback="raw"`` and then ``readback="sparse"``,
+   which takes the arena-free pieces tail: each `.kin` sha256 phase 6's,
+   each stage table, wall time, peak device memory and sampled peak host RSS
+   logged, the pieces run's peak device memory at most the raw run's plus
+   1 GiB;
 7. merge fan-in at the reference's workload shape: 39 synthetic K=13
    samples, 8 of them `.kin.bgz` (``fabricate_kin``: the recipe of
    ``scripts/bench_merge_fanin.py`` on the port's ``formats``, seeds
@@ -89,7 +105,7 @@ Phases — each one passes or raises, and any failure exits non-zero:
    ``{"ok": true, "device": {...}}``.
 
 Phases 7-9 run between phases 2 and 3 (7, with 10c) and after phase 5 (8,
-9); 10a and 10d run after phase 9, 10b after phase 6, 11 after 10b. The
+9); 10a and 10d run after phase 9, 10b after phase 6b, 11 after 10b. The
 script exits non-zero, printing no result, where CUDA is unavailable or
 outside a checkout of the repository. It never imports jax. Scratch files go
 under ``build/smoke`` (git-ignored) and are removed at the end. It needs
@@ -438,6 +454,7 @@ def phase_slice(work, dev):
 
     (plane,), nk = replay(chunks, k, cw, dev, [saturating_accumulate_sorted])
     want = unfold_canonical(plane.cpu().numpy(), k)
+    choice = readback_ops(dev, plane, k)
     del plane
     kin = genome + f".{k:02d}.kin"
     if not np.array_equal(np.fromfile(kin, dtype=np.uint8), want):
@@ -454,7 +471,199 @@ def phase_slice(work, dev):
     n_all_valid = sum(m is None for _, m in chunks)
     log(f"plain replay: .kin identical, num_kmers {nk}, vals_max 255, output "
         f"sha256 {sha} (the file's); {n_all_valid} of {len(chunks)} chunks all-valid")
-    return launches, genome, chunks, cw, total_bp, sha
+    return launches, genome, chunks, cw, total_bp, sha, choice
+
+
+READBACK_MODES = ("raw", "packed", "2bit", "3bit", "sparse")
+# the stages of an index's readback tail, by the start of their names
+TAIL_STAGES = ("escape counts", "output alloc", "copy + ", "write ", "2-bit fallback")
+
+
+def readback_ops(dev, plane, k):
+    """The readback modes on a folded plane on the card: ``fetch_dense`` in
+    every mode ``torch.equal`` to the plane (the raw copy against the card's
+    plane in 1 GiB slices, every other mode against the raw copy), the
+    escape counts and the JAX package's auto choice on them, and each device
+    op's median ms (CUDA events) beside its bytes bound and its calls in one
+    index. Returns the choice."""
+    import torch
+
+    from pykmer_tpu_torch.ops import packing, readback
+
+    size = plane.shape[0]
+    t0 = time.perf_counter()
+    escapes = packing.count_all_escapes(plane)
+    choice = packing.pick_mode(plane, size, "auto", escapes)
+    log(f"readback K={k}: escape counts (>=1, >=3, >=7, >=15) {escapes} in "
+        f"{time.perf_counter() - t0:.3f} s; the JAX package's auto choice: {choice}")
+    ref, walls = None, {}
+    for mode in READBACK_MODES:
+        t0 = time.perf_counter()
+        host = readback.fetch_dense(plane, mode)
+        walls[mode] = round(time.perf_counter() - t0, 3)
+        if ref is None:
+            step = 1 << 30
+            if not all(torch.equal(torch.from_numpy(host[lo : lo + step]).to(dev),
+                                   plane[lo : lo + step]) for lo in range(0, size, step)):
+                raise AssertionError(f"K={k}: fetch_dense({mode!r}) differs from the plane")
+            ref = host
+        elif not torch.equal(torch.from_numpy(host), torch.from_numpy(ref)):
+            raise AssertionError(f"K={k}: fetch_dense({mode!r}) differs from the plane")
+        del host
+    del ref
+    log(f"readback K={k}: fetch_dense torch.equal to the plane in every mode; wall s {walls}")
+
+    sl = plane[: readback.SLICE_CELLS]
+    seg = plane[: packing.SPARSE_SEG_CELLS]
+    cap = packing.sparse_cap(seg.shape[0])
+    idx = torch.nonzero(sl >= packing.ESCAPE2).squeeze(1).cpu().numpy()
+    seg_nz = int(torch.count_nonzero(seg))
+    ops = {
+        "count_all_escapes_ms": median_ms(lambda: packing.count_all_escapes(plane), 5),
+        "count_all_escapes_bound_ms": size / H100_SXM_BYTES_PER_S * 1e3,
+        "slice_cells": sl.shape[0],
+        "pack_2bit_ms": median_ms(lambda: packing.pack_2bit(sl), 10),
+        "pack_3bit_ms": median_ms(lambda: packing.pack_3bit(sl), 10),
+        "pack_nibbles_ms": median_ms(lambda: packing.pack_nibbles(sl), 10),
+        # the slice read once, the packed bytes written once
+        "pack_bound_ms": {w: (sl.shape[0] + packing.packed_len(sl.shape[0], w))
+                          / H100_SXM_BYTES_PER_S * 1e3 for w in (2, 3, 4)},
+        "gather_2bit_escapes_of_a_slice_ms": median_ms(
+            lambda: packing.gather_cells(plane, idx), 5),
+        "gather_cells": int(idx.shape[0]),
+        "segment_cells": seg.shape[0],
+        "segment_nonzeros": seg_nz,
+        "segment_overflows_the_cap": seg_nz > cap,
+        "pack_sparse_segment_ms": median_ms(lambda: packing.pack_sparse_segment(seg, cap), 5),
+        "calls_per_index": {
+            "count_all_escapes": 1, "pack (each width)": -(-size // readback.SLICE_CELLS),
+            "pack_sparse_segment": -(-size // packing.SPARSE_SEG_CELLS)},
+    }
+    log(f"readback device ops K={k}, median ms (CUDA events): " + json.dumps(ops))
+    torch.cuda.empty_cache()
+    return choice
+
+
+def index_in_process(genome, k, dev, readback):
+    """``create_fasta_index(..., config=IndexConfig(readback=readback))`` in
+    this process with the stage table on; returns (wall s, stage table,
+    `.kin.json`), the `.kin` removed."""
+    from pykmer_tpu_torch import create_fasta_index
+    from pykmer_tpu_torch.config import IndexConfig
+
+    os.environ["PYKMER_TPU_STAGE_TIMING"] = "1"
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            create_fasta_index(genome, "s", genome, k, verbose=False, device=dev,
+                               config=IndexConfig(kmer_len=k, readback=readback))
+    finally:
+        os.environ.pop("PYKMER_TPU_STAGE_TIMING")
+    wall = time.perf_counter() - t0
+    return wall, err.getvalue().rstrip(), take_outputs(genome + f".{k:02d}.kin")
+
+
+def tail_s(table):
+    """Seconds of an index's readback tail: the stages of ``TAIL_STAGES`` in
+    its stage table."""
+    total = 0.0
+    for line in table.splitlines():
+        parts = line.split()  # "<name> <ms> ms <share>%", as StageTimer.report
+        if "ms" in parts and " ".join(parts[: parts.index("ms") - 1]).startswith(TAIL_STAGES):
+            total += float(parts[parts.index("ms") - 1]) / 1e3
+    return total
+
+
+def phase_k15_modes(dev, genome, total_bp, want_sha, choice):
+    """Phase 4b: the genome at K=15 in this process in every readback mode,
+    raw first and last; each `.kin` sha256 phase 4's. Logs each stage
+    table, its wall and tail seconds, whether the sparse segments took the
+    2-bit fallback, and raw against the JAX package's choice."""
+    k = SLICE_K
+    runs = {}
+    for readback in ("raw", "packed", "2bit", "3bit", "sparse", "raw"):
+        wall, table, meta = index_in_process(genome, k, dev, readback)
+        log(table)
+        tail = tail_s(table)
+        runs.setdefault(readback, []).append([round(wall, 3), round(tail, 3)])
+        log(f"index K={k}, readback={readback} (in process): {total_bp} bp in {wall:.3f} s = "
+            f"{total_bp / wall:.0f} bp/s (verify on), readback tail {tail:.3f} s, output "
+            f"sha256 {meta['output_file_cheksum']}")
+        if meta["output_file_cheksum"] != want_sha:
+            raise AssertionError(f"K={k} readback={readback}: .kin sha256 differs from phase 4's")
+        if readback == "sparse":
+            fb = [ln.strip() for ln in table.splitlines() if "2-bit fallback" in ln]
+            log(f"index K={k}, readback=sparse: segments over the token cap read through the "
+                f"2-bit plane: {fb[0] if fb else 'none'}")
+    log(f"auto at K={k}: [wall s, tail s] of raw {runs['raw']}, of the JAX package's choice "
+        f"({choice}) {runs[choice]}")
+    return runs
+
+
+def index_worker(argv):
+    """Worker mode (``--index-worker <input> <K> <readback>``): one
+    ``create_fasta_index`` on ``cuda:0`` with ``IndexConfig(readback=...)``,
+    verify on; prints one JSON line of its wall, the sweep's launches, peak
+    device memory and peak host RSS (sampled). Its stage table goes to
+    stderr (``PYKMER_TPU_STAGE_TIMING``, set by the caller)."""
+    import torch
+
+    from pykmer_tpu_torch import create_fasta_index
+    from pykmer_tpu_torch.config import IndexConfig
+    from pykmer_tpu_torch.ops import sweep
+
+    peak_rss = rss_sampler()
+    path, k, readback = argv[0], int(argv[1]), argv[2]
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    create_fasta_index(path, "s", path, k, verbose=False, device=dev,
+                       config=IndexConfig(kmer_len=k, readback=readback))
+    print(json.dumps({
+        "readback": readback, "wall_s": time.perf_counter() - t0,
+        "launches": sweep.LAUNCHES, "launches_i64": sweep.LAUNCHES_I64,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "peak_rss_bytes": peak_rss(),  # sampled every 50 ms
+    }), flush=True)
+    return 0
+
+
+def phase_k17_pieces(work, genome, total_bp, want_sha, peak6):
+    """Phase 6b: the genome at K=17 in a fresh process each, readback raw
+    and then sparse (the pieces tail): each `.kin` sha256 phase 6's, the
+    pieces run's peak device memory at most the raw run's plus 1 GiB; stage
+    tables, walls, peak device memory and peak host RSS logged side by side
+    with phase 6's peak (``readback="auto"``, which takes the pieces tail
+    at K=17 on CUDA)."""
+    k = BIG_K
+    runs = {}
+    for readback in ("raw", "sparse"):
+        label = f"K={k} readback={readback}"
+        wall, ((out, err),) = run_job(
+            [[os.path.join(ROOT, "chip_smoke.py"), "--index-worker", genome, str(k), readback]],
+            work, label, env_extra={"PYKMER_TPU_STAGE_TIMING": "1"})
+        meta = take_outputs(genome + f".{k:02d}.kin")
+        r = json.loads(out.strip().splitlines()[-1])
+        r["tail_s"] = tail_s(err)
+        r["bp_per_s"] = total_bp / r["wall_s"]
+        r["process_wall_s"] = wall
+        log(err.rstrip())
+        log(f"index {label} (fresh process): " + json.dumps(r))
+        if meta["output_file_cheksum"] != want_sha:
+            raise AssertionError(f"{label}: .kin sha256 differs from phase 6's")
+        runs[readback] = (r, err)
+    r, err = runs["sparse"]
+    raw = runs["raw"][0]
+    if "(pieces)" not in err or "(pieces)" in runs["raw"][1]:
+        raise AssertionError(f"K={k}: only readback=sparse may take the pieces tail")
+    if r["peak_device_bytes"] > raw["peak_device_bytes"] + (1 << 30):
+        raise AssertionError(f"K={k} pieces: peak device memory {r['peak_device_bytes']} over "
+                             f"the raw run's {raw['peak_device_bytes']} + 1 GiB")
+    log(f"K={k} raw vs pieces: wall {raw['wall_s']:.3f} / {r['wall_s']:.3f} s, tail "
+        f"{raw['tail_s']:.3f} / {r['tail_s']:.3f} s, peak device memory "
+        f"{raw['peak_device_bytes']} / {r['peak_device_bytes']} bytes (phase 6 {peak6}), "
+        f"peak host RSS {raw['peak_rss_bytes']} / {r['peak_rss_bytes']} bytes")
+    return runs
 
 
 def phase_k15_variants(work, dev, genome, total_bp, want_sha):
@@ -607,7 +816,10 @@ def phase_k17(work, dev, genome):
         raise AssertionError(f"K={k}: the kernel plane differs from the plain-sweep plane")
     err = max_abs_err(kern, plain)
     counts = device_counts256(kern)
-    del kern, plain
+    del plain
+    torch.cuda.empty_cache()
+    readback_ops(dev, kern, k)
+    del kern
     torch.cuda.empty_cache()
     counts[0] += 4**k // 2  # each folded cell's structural-zero partner
     stats = stats_from_counts256(counts)
@@ -618,7 +830,7 @@ def phase_k17(work, dev, genome):
         raise AssertionError(f"K={k}: num_kmers {meta['num_kmers']} != replay {nk}")
     log(f"replay K={k}: kernel plane == plain plane ({4**k // 2} cells, torch.equal), "
         f"its stats and num_kmers {nk} are the .kin's, vals_max {meta['vals_max']}")
-    return launches_i64, err, meta["output_file_cheksum"]
+    return launches_i64, err, meta["output_file_cheksum"], peak
 
 
 def device_blocks(n, k, n_shards=1):
@@ -1439,6 +1651,9 @@ def main():
     if sys.argv[1:2] == ["--mh-worker"]:
         sys.path.insert(0, ROOT)
         return mh_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--index-worker"]:
+        sys.path.insert(0, ROOT)
+        return index_worker(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -1471,8 +1686,9 @@ def main():
         k15_sweep, k17_sweep = phase_kernels(dev)
         phase_merge_fanin(work, dev)
         small_fa = phase_oracle(work, dev)
-        launches, genome, chunks, cw, total_bp, sha = phase_slice(work, dev)
+        launches, genome, chunks, cw, total_bp, sha, choice = phase_slice(work, dev)
         gz = phase_k15_variants(work, dev, genome, total_bp, sha)
+        phase_k15_modes(dev, genome, total_bp, sha, choice)
         chunk_step_times(dev, chunks[len(chunks) // 2], cw)
         del chunks
         profiled_run(dev, genome, total_bp)
@@ -1483,7 +1699,8 @@ def main():
         sharded_err = phase_sharded_vs_cpu(dev, rows)
         del rows
         phase_k17_oracle(work, dev, small_fa)
-        launches_i64, replay_err, k17_sha = phase_k17(work, dev, genome)
+        launches_i64, replay_err, k17_sha, k17_peak = phase_k17(work, dev, genome)
+        phase_k17_pieces(work, genome, total_bp, k17_sha, k17_peak)
         phase_sharded_k17(dev, genome, total_bp, k17_sha)
         mh_launches, mh_rows = phase_multihost(work, dev, genome, gz, total_bp, sha, k17_sha)
     finally:

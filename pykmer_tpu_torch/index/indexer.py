@@ -15,9 +15,12 @@ while it is hashed, decoded segment by segment and uploaded
 (``host/pipeline.py``); compressed files and stdin are read whole and then
 pipelined. The host strategy decodes the whole input first. Uploads go through
 a ring of pinned staging buffers. The chased readback tail
-(``ops/readback.py``) then copies, unfolds, writes and hashes the plane, and a
-verify pass re-reads the written file's stats. The files are the JAX
-package's, byte for byte.
+(``ops/readback.py``) then copies, unfolds, writes and hashes the plane in the
+mode ``IndexConfig.readback`` resolves to (:func:`readback_mode`,
+``ops/packing.pick_mode``): raw, a fixed-width pack with escape patches, the
+sparse token stream, or, for a sparse plane above ``PIECES_MIN_CELLS``, the
+arena-free pieces tail. A verify pass re-reads the written file's stats. The
+files are the JAX package's, byte for byte, in every mode.
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ from ..ops.encode import (
     unpack_base_2bit,
     unpack_base_2bit_mask,
 )
+from ..ops import packing
 from ..ops.histogram import sort_codes_fast
-from ..ops.readback import stream_plane_to_out
+from ..ops.readback import stream_plane_to_out, stream_sparse_pieces
 from ..ops.sweep import accumulate_sorted
 
 PRINT_EVERY = 25_000_000  # progress cadence in bp (as the JAX package)
@@ -59,6 +63,13 @@ PRINT_EVERY = 25_000_000  # progress cadence in bp (as the JAX package)
 # (a test lowers it to drive the int64 path at small K)
 MAX_INT32_SORT_CELLS = np.iinfo(np.int32).max
 STAGING_SLOTS = 3  # pinned host buffers the uploads rotate through
+# a sparse readback of a folded plane above this many cells (K >= 17, where
+# the JAX package splits the plane into 2^30-cell sub-planes) takes the
+# arena-free pieces tail (a test lowers it to drive that tail at small K)
+PIECES_MIN_CELLS = 1 << 30
+# K at which readback="auto" on CUDA follows the JAX package's choice
+# (readback_mode); everywhere else auto reads back raw
+AUTO_JAX_RULE_K = frozenset({17})
 
 
 def _have_native() -> bool:
@@ -185,12 +196,28 @@ def create_fasta_index(
         header.num_kmers = int(num_kmers)
         header.chromosomes = chromosomes
 
-        with stages.stage("output alloc"):
-            out = big_empty(data_size)
-        with DirectWriter(tmp, size=data_size) as fd:
-            counts, output_ck = stream_plane_to_out(plane, kmer_len, out, fd,
-                                                    stages=stages)
-        del plane, out
+        mode = readback_mode(config.readback, kmer_len, device, strategy)
+        counts = None
+        escapes = None
+        if mode == "auto" and data_size // 2 >= packing.AUTO_MIN_CELLS \
+                or mode == "sparse" and data_size // 2 > PIECES_MIN_CELLS:
+            with stages.stage("escape counts"):
+                escapes = packing.count_all_escapes(plane)
+        mode = packing.pick_mode(plane, data_size // 2, mode, escapes)
+        if mode == "sparse" and data_size // 2 > PIECES_MIN_CELLS:
+            # no 4^K host array: each segment's pieces are written and hashed
+            with DirectWriter(tmp, size=data_size) as fd:
+                res = stream_sparse_pieces(plane, kmer_len, fd, tmp, escapes, stages=stages)
+            if res is not None:
+                counts, output_ck = res
+        if counts is None:
+            with stages.stage("output alloc"):
+                out = big_empty(data_size)
+            with DirectWriter(tmp, size=data_size) as fd:
+                counts, output_ck = stream_plane_to_out(plane, kmer_len, out, fd,
+                                                        stages=stages, mode=mode)
+            del out
+        del plane
         # each folded cell adds its value plus exactly one structural zero
         # (its non-canonical partner) to the full plane's histogram
         counts[0] += data_size // 2
@@ -227,14 +254,35 @@ def _sha256_hex(data) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
+def readback_mode(readback: str, kmer_len: int, device: torch.device,
+                  strategy: str) -> str:
+    """The readback ``readback`` (``IndexConfig.readback``) stands for: raw
+    for the host strategy, whose plane is already in host memory; "auto" on
+    the CPU, and on CUDA at every K outside ``AUTO_JAX_RULE_K``, is raw;
+    "auto" on CUDA at a K of ``AUTO_JAX_RULE_K`` stays "auto" for
+    ``packing.pick_mode`` (the JAX package's cost model), so that at K >= 17
+    it takes the pieces tail where the plane is sparse enough. Explicit
+    modes stand. ``AUTO_JAX_RULE_K`` holds the K at which the card's times
+    (``chip_smoke.py`` phases 4b and 6b, PERF.md §6) showed the JAX
+    package's choice no slower than raw. On an H100, with the smoke's 256
+    Mbp genome: at K=15 its choice, the 2-bit plane, took 2.85-2.96 s
+    against raw's 2.02-2.35 s, so auto stays raw; at K=17 its choice, the
+    pieces tail, took 25.1-27.2 s against raw's 34.5-36.2 s, so auto
+    follows it. Below K=15 the JAX rule reads back raw anyway (planes under
+    2^26 cells)."""
+    if strategy == "host":
+        return "raw"
+    if readback == "auto" and not (device.type == "cuda" and kmer_len in AUTO_JAX_RULE_K):
+        return "raw"
+    return readback
+
+
 def _check_supported(config: IndexConfig, kmer_len: int) -> None:
     if config.kmer_len != kmer_len:
         raise ValueError(f"config.kmer_len {config.kmer_len} != kmer_len {kmer_len}")
-    if config.readback not in ("auto", "raw"):
-        raise NotImplementedError(
-            f"readback={config.readback!r}: only the raw readback is ported "
-            "(ROADMAP.md, queue 1: 'readback modes')"
-        )
+    if config.readback not in ("auto", *packing.MODES):
+        raise ValueError(f"readback={config.readback!r}: not one of auto, "
+                         f"{', '.join(packing.MODES)}")
     if config.kernel != "auto":
         raise ValueError(
             f"kernel={config.kernel!r}: the port has one sweep, chosen by the "

@@ -223,6 +223,51 @@ def test_host_strategy_matches_device_on_card(cuda, tmp_path):
     assert out[0] == out[1]
 
 
+@pytest.mark.parametrize("readback", ["raw", "packed", "2bit", "3bit", "sparse", "pieces"])
+def test_readback_modes_on_card(cuda, tmp_path, monkeypatch, readback):
+    """K=11 on the card in every readback mode gives the CPU's raw `.kin`:
+    the packs and the escape gathers on the card, the sparse stream over
+    2^14-cell segments, and ("pieces", with the pieces threshold lowered)
+    the arena-free tail."""
+    from pykmer_tpu_torch.index import indexer
+    from pykmer_tpu_torch.ops import packing
+
+    monkeypatch.setattr(packing, "SPARSE_MIN_CELLS", 1)
+    monkeypatch.setattr(packing, "SPARSE_SEG_CELLS", 1 << 14)
+    if readback == "pieces":
+        monkeypatch.setattr(indexer, "PIECES_MIN_CELLS", 0)
+        readback = "sparse"
+    fasta = _genome(str(tmp_path / "m.fa"), np.random.default_rng(6))
+    want = _kin(create_fasta_index(fasta, "s", fasta, 11, verbose=False, device="cpu",
+                                   config=IndexConfig(kmer_len=11, chunk_windows=1 << 16)))
+    cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 16, readback=readback)
+    assert _kin(create_fasta_index(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                   device=cuda)) == want
+
+
+def test_readback_ops_on_card_match_cpu(cuda):
+    """The packs, the escape counts, the sparse compaction and fetch_dense
+    in every mode: the card's results equal the CPU's."""
+    from pykmer_tpu_torch.ops import packing, readback
+
+    rng = np.random.default_rng(7)
+    plane_np = (rng.integers(0, 64, 1 << 22, dtype=np.uint8)
+                * (rng.random(1 << 22) < 0.1)).astype(np.uint8)
+    cpu, card = torch.from_numpy(plane_np), torch.from_numpy(plane_np).to(cuda)
+    for width, pack in packing.PACKS.items():
+        assert torch.equal(pack(card).cpu(), pack(cpu)), width
+    assert packing.count_all_escapes(card) == packing.count_all_escapes(cpu)
+    cap = packing.sparse_cap(1 << 20)
+    for a, b in zip(packing.pack_sparse_segment(card[: 1 << 20], cap)[:3],
+                    packing.pack_sparse_segment(cpu[: 1 << 20], cap)[:3]):
+        assert torch.equal(a.cpu(), b)
+    idx = np.array([0, 5, (1 << 22) - 1], dtype=np.int64)
+    assert np.array_equal(packing.gather_cells(card, idx), plane_np[idx])
+    for mode in ("auto", "raw", "packed", "2bit", "3bit", "sparse"):
+        assert np.array_equal(readback.fetch_dense(card, mode, slice_cells=3 << 18),
+                              plane_np), mode
+
+
 @pytest.mark.parametrize("n", [2, 17, 39])
 def test_block_contingency_cuda_matches_cpu(cuda, n):
     """The stacked ``_int_mm`` step on the card equals the plain int32

@@ -174,9 +174,6 @@ def test_no_valid_kmers_raises_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("cfg,exc", [
-    (IndexConfig(kmer_len=7, readback="2bit"), NotImplementedError),
-    (IndexConfig(kmer_len=7, readback="sparse"), NotImplementedError),
-    (IndexConfig(kmer_len=7, readback="3bit"), NotImplementedError),
     (IndexConfig(kmer_len=7, kernel="pallas"), ValueError),
 ])
 def test_unported_configurations_raise(tmp_path, cfg, exc):
@@ -185,6 +182,67 @@ def test_unported_configurations_raise(tmp_path, cfg, exc):
         pykmer_tpu_torch.create_fasta_index(fasta, "s", fasta, cfg.kmer_len,
                                             config=cfg, verbose=False, device="cpu")
     assert not os.path.exists(fasta + f".{cfg.kmer_len:02d}.kin")
+
+
+@pytest.mark.parametrize("readback", ["raw", "packed", "2bit", "3bit", "sparse", "auto",
+                                      "sparse-pieces"])
+def test_readback_modes_match_jax(tmp_path, monkeypatch, readback):
+    """Every readback the JAX package accepts gives its `.kin` and
+    `.kin.json` at K=9, with the sparse floor and segment lowered so that
+    the sparse stream runs over 16 segments (the 2-bit fallback is held in
+    tests/test_torch_readback.py). "sparse-pieces" lowers the port's pieces
+    threshold so that the arena-free tail runs."""
+    from pykmer_tpu_torch.index import indexer as tix
+    from pykmer_tpu_torch.ops import packing
+
+    monkeypatch.setenv("PYKMER_TPU_SPARSE_MIN", "1")
+    monkeypatch.setenv("PYKMER_TPU_SPARSE_SEG", str(1 << 13))
+    monkeypatch.setattr(packing, "SPARSE_MIN_CELLS", 1)
+    monkeypatch.setattr(packing, "SPARSE_SEG_CELLS", 1 << 13)
+    if readback == "sparse-pieces":
+        monkeypatch.setattr(tix, "PIECES_MIN_CELLS", 0)
+        readback = "sparse"
+    rng = np.random.default_rng(12)
+    fasta = make_random_fasta(str(tmp_path / "m.fa"), rng, n_records=4,
+                              lengths=(20_000, 900, 31, 15_000))
+    cfg = IndexConfig(kmer_len=9, chunk_windows=4096, readback=readback)
+    j = _outputs(jax_create(fasta, "s", fasta, 9, config=cfg, verbose=False))
+    stages = []
+    real = tix.StageTimer
+
+    def spy():
+        stages.append(real())
+        return stages[-1]
+
+    monkeypatch.setattr(tix, "StageTimer", spy)
+    h = pykmer_tpu_torch.create_fasta_index(fasta, "s", fasta, 9, config=cfg,
+                                            verbose=False, device="cpu")
+    _assert_same(j, _outputs(h))
+    names = " | ".join(name for name, _ in stages[0].stages)
+    want = {"raw": "copy + unfold |", "auto": "copy + unfold |",
+            "packed": "copy + unfold (packed)", "2bit": "copy + unfold (2bit)",
+            "3bit": "copy + unfold (3bit)"}.get(readback)
+    if readback == "sparse":
+        want = "(pieces)" if tix.PIECES_MIN_CELLS == 0 else "(sparse)"
+    assert want in names + " |"
+
+
+def test_readback_mode_rule(monkeypatch):
+    """auto reads back raw on the CPU and on CUDA outside AUTO_JAX_RULE_K;
+    the host strategy reads back raw; explicit modes stand."""
+    from pykmer_tpu_torch.index import indexer as tix
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    monkeypatch.setattr(tix, "AUTO_JAX_RULE_K", frozenset({17}))
+    assert tix.readback_mode("auto", 17, cpu, "device") == "raw"
+    assert tix.readback_mode("auto", 15, cuda, "device") == "raw"
+    assert tix.readback_mode("auto", 17, cuda, "device") == "auto"
+    assert tix.readback_mode("auto", 17, cuda, "host") == "raw"
+    assert tix.readback_mode("2bit", 17, cuda, "host") == "raw"
+    for mode in ("raw", "packed", "2bit", "3bit", "sparse"):
+        assert tix.readback_mode(mode, 9, cpu, "device") == mode
+    with pytest.raises(ValueError, match="readback='4bit'"):
+        tix._check_supported(IndexConfig(kmer_len=7, readback="4bit"), 7)
 
 
 # ---- host helpers: the port's copies equal the originals -------------------
