@@ -16,18 +16,29 @@ Phases — each one passes or raises, and any failure exits non-zero:
    read and one written back per distinct in-range sector, at 3.35 TB/s)
    and its share of it; then the card tests of the kernel's edges (runs
    over block boundaries, ragged and tiny batches, unaligned codes views,
-   the bands, int64 codes above 2^31: ``tests/test_torch_cuda.py -k
-   test_kernel_``, in a pytest subprocess);
+   the bands, int64 codes above 2^31) and of the encode kernels (K from 1 to
+   31, ragged spans, unaligned planes, invalid bases, the halo encoder):
+   ``tests/test_torch_cuda.py -k "test_kernel_ or test_encode_kernel_"``,
+   in a pytest subprocess;
+2b. the encode kernels vs their plain torch versions on the card, with
+   ``torch.equal``: 2^24-window chunks at K=15 (int32), 17 and 19 (int64),
+   the packed entry on masked and all-valid planes and the bases entry with
+   and without invalid bases; median kernel and plain times beside the
+   kernel's bound (the planes read once and the codes written once, at
+   3.35 TB/s); then the halo encoder at K=19 on ``[cuda:0] * 8`` against
+   ``[cpu] * 8``, one bases-kernel launch per shard;
 3. oracle: a small FASTA (Ns, several records, an empty one) indexed at K=11
    through ``python -m pykmer_tpu_torch index`` gives the `.kin` and stats of
    the port's copy of the numpy oracle (``pykmer_tpu_torch.oracle``);
 4. the slice at real size: a seeded 256 Mbp genome with repeat families,
    indexed at K=15 through the CLI entry point with verify on (the streaming
    pipeline); the kernel's launch count equals the count of chunks the
-   pipeline frames, and a replay of the same chunks with the plain sweep
-   gives the same `.kin` byte for byte; a gzip -1 copy of the genome (the
-   pipelined path that reads the input whole) and the host strategy give the
-   same `.kin` sha256; then the readback modes on the replay's plane:
+   pipeline frames, and so does the packed encode kernel's; a replay of the
+   same chunks with the plain encoder and the plain sweep gives the same
+   `.kin` byte for byte; a gzip -1 copy of the genome (the pipelined path
+   that reads the input whole) and the host strategy (one encode launch a
+   chunk, no sweep) give the same `.kin` sha256; then the readback modes on
+   the replay's plane:
    ``fetch_dense`` in every mode ``torch.equal`` to the plane, the escape
    counts and the JAX package's choice (``packing.pick_mode``), and each
    device op of the modes timed with CUDA events;
@@ -36,7 +47,8 @@ Phases — each one passes or raises, and any failure exits non-zero:
    each `.kin` sha256 phase 4's, each stage table logged, and whether the
    sparse run's segments overflowed the token caps and took the 2-bit
    fallback;
-5. where the time goes: one chunk's steps timed with CUDA events, then a
+5. where the time goes: one chunk's steps timed with CUDA events (the
+   encode kernel and the plain encode apart), then a
    second index run of the genome under ``torch.profiler``, whose device
    activity (kernels and copies, overlaps merged) gives the busy and idle
    shares of its wall time;
@@ -45,8 +57,9 @@ Phases — each one passes or raises, and any failure exits non-zero:
    the sparse numpy oracle's counts and no other cell nonzero; then the
    genome through the CLI with verify on (``readback="auto"``: the pieces
    tail), with its stage table, bp/s and peak device memory; the int64
-   launches equal the chunk count, and a replay of
-   the same chunks gives a kernel plane equal to the plain-sweep plane
+   launches of the sweep and of the encode kernel equal the chunk count, and
+   a replay of the same chunks (plain encoder) gives a kernel plane equal to
+   the plain-sweep plane
    (``torch.equal`` on the card) whose stats are the `.kin`'s; the readback
    modes on that plane as in phase 4. Each 16 GiB `.kin` is removed as soon
    as it is checked;
@@ -76,7 +89,8 @@ Phases — each one passes or raises, and any failure exits non-zero:
    ``create_fasta_index_sharded`` on a 1x4 and a 2x2 mesh, a run with
    ``checkpoint_every=1`` stopped after its second save and then resumed,
    and ``index --shards <card count>`` through the CLI entry: each `.kin`
-   sha256 equal to phase 4's and the sweep launched (R·S)^2 times per step;
+   sha256 equal to phase 4's, the sweep launched (R·S)^2 times per step and
+   the encode kernel once per position per step;
    one step's parts timed with CUDA events (bucket, exchange, the received
    rows applied one launch per row against one re-sort and one launch);
    (d) one K=15 step set on ``[cuda:0] * 4`` ``torch.equal`` to the same
@@ -95,16 +109,17 @@ Phases — each one passes or raises, and any failure exits non-zero:
    stage table on stderr); (b) the gzip -1 copy through the CLI (staged by
    process 0, no ``*.inflated.tmp*`` left); (c) the genome at K=17 in worker mode, each
    process holding a full 8 GiB folded plane on the card. The `.kin`
-   sha256 of (a) and (b) is phase 4's and of (c) phase 6's; the launches
-   summed over the processes equal the steps of each process's byte range
-   times (R·S)^2; process 0's received rows of one step are timed kernel
+   sha256 of (a) and (b) is phase 4's and of (c) phase 6's; the sweep's
+   launches summed over the processes equal the steps of each process's
+   byte range times (R·S)^2, the encode kernel's the steps times R·S; process 0's received rows of one step are timed kernel
    against plain; each process's wall and stage table are logged, and at
    K=17 its peak device memory and peak host RSS. A worker that fails or
    times out fails the phase, and every worker is reaped;
-12. a JSON line of the kernels, then the last line
+12. a JSON line of the kernels (the sweep's four rows, the encode
+   kernels' three), then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phases 7-9 run between phases 2 and 3 (7, with 10c) and after phase 5 (8,
+Phase 2b runs after phase 2, phases 7-9 between phases 2b and 3 (7, with 10c) and after phase 5 (8,
 9); 10a and 10d run after phase 9, 10b after phase 6b, 11 after 10b. The
 script exits non-zero, printing no result, where CUDA is unavailable or
 outside a checkout of the repository. It never imports jax. Scratch files go
@@ -136,6 +151,7 @@ BIG_K = 17
 ORACLE_K = 11
 H100_SXM_BYTES_PER_S = 3.35e12  # published HBM3 bandwidth of the H100 SXM
 PROFILE_TOP = 8  # device items listed by the profiled run
+SPIN_CYCLES = 2_000_000  # ~1 ms of card clock queued ahead of each timing
 FANIN_N, FANIN_K, FANIN_BGZ = 39, 13, 8  # the reference's 39-genome merge
 FANIN_PAIRS = ((0, 1), (7, 8), (20, 38))  # bgz-bgz, bgz-raw, raw-raw
 CROSSOVER_N = (2, 4, 8, 16, 31)  # merge sizes timed with both engines
@@ -146,6 +162,9 @@ MERGE_SHARDS = 4
 # 2 GiB planes (over 2^31 - 1 cells) the int64 launcher
 K17_SHARDS = (8, 4)
 MH_PROCESSES = 2  # processes of the multi-host job (phase 11), on the one card
+ENCODE_K = (15, 17, 19)  # phase 2b: int32 codes, then int64 (K=19's are the halo's)
+ENCODE_WINDOWS = 1 << 24  # windows per chunk on CUDA at every K
+HALO_K, HALO_SHARDS, HALO_SHARD_LEN = 19, 8, 1 << 20  # the halo encoder's run
 MH_TIMEOUT_S = 400  # a multi-host run's limit: its workers are killed after it
 
 
@@ -154,7 +173,10 @@ def log(msg):
 
 
 def median_ms(fn, reps):
-    """Median device time of ``fn`` (CUDA events), after one warm-up call."""
+    """Median device time of ``fn`` (CUDA events), after one warm-up call.
+    A ~1 ms spin on the card is queued before each start event, so the card
+    is still busy while the host enqueues ``fn``'s launches: a short
+    kernel's time is its own, not its wrapper's enqueue."""
     import torch
 
     fn()
@@ -163,6 +185,7 @@ def median_ms(fn, reps):
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -264,21 +287,25 @@ def kernel_edge_cases():
     positions, across a block boundary, from a block's last position to past
     it or to the batch's end; batches smaller than a block or not a multiple
     of it, one run over the whole batch, m = 1, codes views at unaligned
-    offsets, the sentinel / -1 / int32-max bands, int64 codes above 2^31),
-    each byte for byte against the plain version, in a pytest subprocess."""
+    offsets, the sentinel / -1 / int32-max bands, int64 codes above 2^31)
+    and of the encode kernels' (K = 1, 15, 17, 19, 21, 31, spans of one
+    window to many blocks with a ragged end, planes at unaligned offsets,
+    invalid bases, the halo encoder on the card), each exactly against the
+    plain version, in a pytest subprocess."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
-         "-m", "cuda", "tests/test_torch_cuda.py", "-k", "test_kernel_"],
+         "-m", "cuda", "tests/test_torch_cuda.py", "-k",
+         "test_kernel_ or test_encode_kernel_"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:]
     if proc.returncode != 0 or not tail or " passed" not in tail[0] \
             or "skipped" in tail[0]:
-        raise AssertionError(f"sweep edge cases failed:\n{proc.stdout[-4000:]}"
+        raise AssertionError(f"kernel edge cases failed:\n{proc.stdout[-4000:]}"
                              f"{proc.stderr[-2000:]}")
-    log(f"sweep edge cases (tests/test_torch_cuda.py -k test_kernel_): {tail[0]} "
-        f"in {time.perf_counter() - t0:.1f} s")
+    log(f"sweep and encode edge cases (tests/test_torch_cuda.py -k 'test_kernel_ or "
+        f"test_encode_kernel_'): {tail[0]} in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_kernels(dev):
@@ -302,6 +329,105 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     kernel_edge_cases()
     return k15, k17
+
+
+def encode_planes(dev, k, gen):
+    """A 2^24-window chunk at ``k`` made on the card: random packed bases,
+    validity bits with ~1% invalid bases and a run of 1000, and the same
+    bases unpacked to uint8 codes with and without the invalid ones (4).
+    Returns (span, bases2, maskbits, chunk with 4s, chunk without)."""
+    import torch
+
+    from pykmer_tpu_torch.ops.encode import unpack_base_2bit, unpack_base_2bit_mask
+
+    span = ENCODE_WINDOWS + k - 1
+    bases2 = torch.randint(0, 256, ((span + 3) // 4,), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    n_bits = (span + 7) // 8 * 8
+    valid = torch.rand(n_bits, device=dev, generator=gen) >= 0.01
+    valid[span // 2 : span // 2 + 1000] = False
+    valid[span:] = False  # past the span, as pack_base_stream pads
+    weights = torch.arange(8, dtype=torch.uint8, device=dev)
+    maskbits = (valid.view(-1, 8).to(torch.uint8) << weights).sum(1, dtype=torch.uint8)
+    return (span, bases2, maskbits, unpack_base_2bit_mask(bases2, maskbits, span),
+            unpack_base_2bit(bases2, span))
+
+
+def encode_vs_plain(label, kernel, plain, bound_bytes):
+    """One encode kernel against its plain version on the same inputs
+    (``torch.equal``, dtype included); returns (max abs err, min kernel ms,
+    min plain ms, bound ms), each time the median of one round, rounds
+    alternating plain, kernel, kernel, plain."""
+    import torch
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"encode {label}: kernel != plain")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    t_plain = [median_ms(plain, 5)]
+    t_kernel = [median_ms(kernel, 20), median_ms(kernel, 20)]
+    t_plain.append(median_ms(plain, 5))
+    bound = bound_bytes / H100_SXM_BYTES_PER_S * 1e3
+    log(f"encode {label}, {got.numel()} {got.dtype} codes: kernel == plain; median ms "
+        f"kernel {t_kernel}, plain {t_plain}; bound {bound:.4f} ms ({bound_bytes} bytes "
+        f"read once and written once at {H100_SXM_BYTES_PER_S / 1e12} TB/s); kernel at "
+        f"{bound / min(t_kernel):.3f} of its bound")
+    del got, want
+    return err, min(t_kernel), min(t_plain), bound
+
+
+def phase_encode(dev):
+    """Phase 2b: the encode kernels against their plain versions at the main
+    path's chunk size, K = 15, 17, 19, both entries, masked and all-valid;
+    then the halo encoder at K=19 on ``[cuda:0] * 8`` against ``[cpu] * 8``.
+    Returns ({(entry, K, variant): (err, ms, plain ms, bound ms)}, the halo
+    run's bases-kernel launches)."""
+    import numpy as np
+    import torch
+
+    from pykmer_tpu_torch.ops import encode
+    from pykmer_tpu_torch.parallel import make_halo_encode, make_mesh
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for k in ENCODE_K:
+        span, bases2, maskbits, chunk, clean = encode_planes(dev, k, gen)
+        m = span - k + 1
+        code_bytes = m * torch.empty((), dtype=encode.code_dtype(k)).element_size()
+        for variant, mb in (("masked", maskbits), ("all-valid", None)):
+            in_bytes = bases2.numel() + (0 if mb is None else mb.numel())
+            out[("packed", k, variant)] = encode_vs_plain(
+                f"packed K={k} {variant}",
+                lambda: encode.canonical_codes_packed(bases2, mb, span, k),
+                lambda: encode.canonical_codes_packed_plain(bases2, mb, span, k),
+                in_bytes + code_bytes)
+        for variant, c in (("masked", chunk), ("all-valid", clean)):
+            out[("bases", k, variant)] = encode_vs_plain(
+                f"bases K={k} {variant}", lambda: encode.canonical_codes(c, k),
+                lambda: encode.canonical_codes_plain(c, k), c.numel() + code_bytes)
+        del bases2, maskbits, chunk, clean
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED)
+    seq = rng.integers(0, 4, size=HALO_SHARDS * HALO_SHARD_LEN).astype(np.uint8)
+    seq[rng.random(seq.shape[0]) < 0.01] = 4
+    mesh = make_mesh(HALO_SHARDS, devices=[dev] * HALO_SHARDS)
+    encode.BASES_LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = make_halo_encode(mesh, HALO_K, HALO_SHARD_LEN)(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = encode.BASES_LAUNCHES
+    want = make_halo_encode(make_mesh(HALO_SHARDS, device="cpu"), HALO_K,
+                            HALO_SHARD_LEN)(seq)
+    if not torch.equal(got.cpu(), want) or launches != HALO_SHARDS:
+        raise AssertionError(f"halo encoder K={HALO_K}: the card's codes differ from the "
+                             f"CPU mesh's, or {launches} launches for {HALO_SHARDS} shards")
+    log(f"halo encoder K={HALO_K} on {dev} x{HALO_SHARDS}, {HALO_SHARD_LEN} bases a shard: "
+        f"torch.equal to [cpu] x{HALO_SHARDS}, {launches} bases-kernel launches, "
+        f"{wall:.3f} s wall (first call)")
+    return out, launches
 
 
 def write_small_fasta(path, rng):
@@ -398,22 +524,25 @@ def pipelined_chunks(genome, k, cw):
 
 
 def replay(chunks, k, cw, dev, sweeps):
-    """Step A of every chunk on the card; each sorted batch goes through each
+    """Step A of every chunk on the card with the plain encoder (unpack, K
+    shifted slices, fold) and the sort; each sorted batch goes through each
     of ``sweeps`` into its own plane. Returns (planes, number of k-mers)."""
     import torch
 
-    from pykmer_tpu_torch.index.indexer import chunk_sorted_codes
+    from pykmer_tpu_torch.ops.encode import canonical_codes_packed_plain
+    from pykmer_tpu_torch.ops.histogram import sort_codes_fast
 
     span = cw + k - 1
     planes = [torch.zeros(4**k // 2, dtype=torch.uint8, device=dev) for _ in sweeps]
     nk = 0
     for b, m in chunks:
-        codes, nvalid = chunk_sorted_codes(
+        codes = canonical_codes_packed_plain(
             torch.from_numpy(b).to(dev),
-            None if m is None else torch.from_numpy(m).to(dev), k, span)
+            None if m is None else torch.from_numpy(m).to(dev), span, k)
+        nk += int((codes < 4**k // 2).sum())
+        codes = sort_codes_fast(codes)
         for plane, sweep_fn in zip(planes, sweeps):
             sweep_fn(plane, codes)
-        nk += int(nvalid)
     return planes, nk
 
 
@@ -430,7 +559,7 @@ def phase_slice(work, dev):
 
     import bench
     from pykmer_tpu_torch.utils.checksum import sha256_file
-    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops import encode, sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
     from pykmer_tpu_torch.ops.readback import unfold_canonical
 
@@ -442,15 +571,16 @@ def phase_slice(work, dev):
     cw = chunk_windows_for(genome, k, dev)
     chunks, total_bp = pipelined_chunks(genome, k, cw)
 
-    sweep.LAUNCHES = 0
+    sweep.LAUNCHES = encode.LAUNCHES = 0
     wall, table = run_cli(["index", genome, "s", str(k), "--device", str(dev)])
-    launches = sweep.LAUNCHES
+    launches, enc_launches = sweep.LAUNCHES, encode.LAUNCHES
     log(table)
     log(f"index K={k}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
         f"(verify on, streaming input), {len(chunks)} chunks of {cw} windows, "
-        f"{launches} sweep launches")
-    if launches != len(chunks):
-        raise AssertionError(f"sweep launched {launches} times for {len(chunks)} chunks")
+        f"{launches} sweep launches, {enc_launches} encode launches")
+    if launches != len(chunks) or enc_launches != len(chunks):
+        raise AssertionError(f"sweep launched {launches} times and the encode kernel "
+                             f"{enc_launches} for {len(chunks)} chunks")
 
     (plane,), nk = replay(chunks, k, cw, dev, [saturating_accumulate_sorted])
     want = unfold_canonical(plane.cpu().numpy(), k)
@@ -469,9 +599,10 @@ def phase_slice(work, dev):
     if sha256_file(kin) != sha:
         raise AssertionError("the recorded output sha256 is not the file's")
     n_all_valid = sum(m is None for _, m in chunks)
-    log(f"plain replay: .kin identical, num_kmers {nk}, vals_max 255, output "
-        f"sha256 {sha} (the file's); {n_all_valid} of {len(chunks)} chunks all-valid")
-    return launches, genome, chunks, cw, total_bp, sha, choice
+    log(f"plain replay (plain encoder, plain sweep): .kin identical, num_kmers {nk}, "
+        f"vals_max 255, output sha256 {sha} (the file's); {n_all_valid} of {len(chunks)} "
+        f"chunks all-valid")
+    return (launches, enc_launches), genome, chunks, cw, total_bp, sha, choice
 
 
 READBACK_MODES = ("raw", "packed", "2bit", "3bit", "sparse")
@@ -611,7 +742,7 @@ def index_worker(argv):
 
     from pykmer_tpu_torch import create_fasta_index
     from pykmer_tpu_torch.config import IndexConfig
-    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops import encode, sweep
 
     peak_rss = rss_sampler()
     path, k, readback = argv[0], int(argv[1]), argv[2]
@@ -622,6 +753,7 @@ def index_worker(argv):
     print(json.dumps({
         "readback": readback, "wall_s": time.perf_counter() - t0,
         "launches": sweep.LAUNCHES, "launches_i64": sweep.LAUNCHES_I64,
+        "encode_launches": encode.LAUNCHES,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "peak_rss_bytes": peak_rss(),  # sampled every 50 ms
     }), flush=True)
@@ -651,6 +783,9 @@ def phase_k17_pieces(work, genome, total_bp, want_sha, peak6):
         log(f"index {label} (fresh process): " + json.dumps(r))
         if meta["output_file_cheksum"] != want_sha:
             raise AssertionError(f"{label}: .kin sha256 differs from phase 6's")
+        if r["encode_launches"] != r["launches"]:
+            raise AssertionError(f"{label}: {r['encode_launches']} encode launches for "
+                                 f"{r['launches']} sweep launches")
         runs[readback] = (r, err)
     r, err = runs["sparse"]
     raw = runs["raw"][0]
@@ -666,12 +801,13 @@ def phase_k17_pieces(work, genome, total_bp, want_sha, peak6):
     return runs
 
 
-def phase_k15_variants(work, dev, genome, total_bp, want_sha):
+def phase_k15_variants(work, dev, genome, total_bp, want_sha, cw):
     """A gzip -1 copy of the genome (read whole, then pipelined) and the host
-    strategy give the streaming run's `.kin` sha256."""
+    strategy give the streaming run's `.kin` sha256; the encode kernel runs
+    once a chunk on both, the sweep on the gzip copy's only."""
     import gzip
 
-    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops import encode, sweep
 
     k = SLICE_K
     gz = os.path.join(work, "genome_gz1.fa.gz")
@@ -682,28 +818,32 @@ def phase_k15_variants(work, dev, genome, total_bp, want_sha):
         f"{time.perf_counter() - t0:.1f} s (set-up)")
     for path, extra, label in ((gz, [], "gzip -1 input"),
                                (genome, ["--accumulate", "host"], "host strategy")):
-        sweep.LAUNCHES = 0
+        sweep.LAUNCHES = encode.LAUNCHES = 0
         wall, table = run_cli(["index", path, "s", str(k), "--device", str(dev), *extra])
         meta = take_outputs(path + f".{k:02d}.kin")
         log(table)
         log(f"index K={k}, {label}: {total_bp} bp in {wall:.3f} s = "
             f"{total_bp / wall:.0f} bp/s (verify on), {sweep.LAUNCHES} sweep launches, "
-            f"output sha256 {meta['output_file_cheksum']}")
+            f"{encode.LAUNCHES} encode launches, output sha256 {meta['output_file_cheksum']}")
         if meta["output_file_cheksum"] != want_sha:
             raise AssertionError(f"K={k} {label}: .kin sha256 differs from the streaming run's")
-        if (sweep.LAUNCHES == 0) != (label == "host strategy"):
-            raise AssertionError(f"K={k} {label}: {sweep.LAUNCHES} sweep launches")
+        # the host strategy frames the whole decoded genome and runs no sweep
+        host = label == "host strategy"
+        n = sharded_frames(genome, k, cw)[1] if host else sweep.LAUNCHES
+        if n == 0 or (sweep.LAUNCHES, encode.LAUNCHES) != (0 if host else n, n):
+            raise AssertionError(f"K={k} {label}: {sweep.LAUNCHES} sweep and "
+                                 f"{encode.LAUNCHES} encode launches")
     return gz
 
 
 def chunk_step_times(dev, chunk, cw):
-    """Median device ms (CUDA events) of each step of one chunk."""
+    """Median device ms (CUDA events) of each step of one chunk, the encode
+    kernel and the plain encode apart."""
     import torch
 
     from pykmer_tpu_torch.index.indexer import chunk_sorted_codes
     from pykmer_tpu_torch.ops import sweep
-    from pykmer_tpu_torch.ops.encode import (
-        canonical_codes, fold_codes, unpack_base_2bit, unpack_base_2bit_mask)
+    from pykmer_tpu_torch.ops.encode import canonical_codes_packed, canonical_codes_packed_plain
     from pykmer_tpu_torch.ops.histogram import sort_codes_fast
 
     k = SLICE_K
@@ -715,19 +855,14 @@ def chunk_step_times(dev, chunk, cw):
                 None if m is None else torch.from_numpy(m).to(dev))
 
     db, dm = upload()
-
-    def encode():
-        chunk = unpack_base_2bit(db, span) if dm is None \
-            else unpack_base_2bit_mask(db, dm, span)
-        return fold_codes(canonical_codes(chunk, k), k)
-
-    codes = encode()
+    codes = canonical_codes_packed(db, dm, span, k)
     sorted_codes, _ = chunk_sorted_codes(db, dm, k, span)
     plane = torch.zeros(4**k // 2, dtype=torch.uint8, device=dev)
     times = {
         "chunk": "all-valid" if m is None else "masked",
         "h2d_pageable_ms": median_ms(upload, 10),
-        "encode_ms": median_ms(encode, 10),
+        "encode_kernel_ms": median_ms(lambda: canonical_codes_packed(db, dm, span, k), 10),
+        "encode_plain_ms": median_ms(lambda: canonical_codes_packed_plain(db, dm, span, k), 10),
         "sort_ms": median_ms(lambda: sort_codes_fast(codes), 10),
         "stepA_ms": median_ms(lambda: chunk_sorted_codes(db, dm, k, span), 10),
         "stepB_sweep_ms": median_ms(lambda: sweep.accumulate_sorted(plane, sorted_codes), 10),
@@ -786,27 +921,29 @@ def phase_k17(work, dev, genome):
     import torch
 
     from pykmer_tpu_torch.formats.header import stats_from_counts256
-    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops import encode, sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
 
     k = BIG_K
     cw = chunk_windows_for(genome, k, dev)
     chunks, total_bp = pipelined_chunks(genome, k, cw)
     log(f"disk free before K={k}: {shutil.disk_usage(work).free} bytes")
-    sweep.LAUNCHES = 0
-    sweep.LAUNCHES_I64 = 0
+    sweep.LAUNCHES = sweep.LAUNCHES_I64 = encode.LAUNCHES = encode.LAUNCHES_I64 = 0
     wall, table = run_cli(["index", genome, "s", str(k), "--device", str(dev)])
     launches, launches_i64 = sweep.LAUNCHES, sweep.LAUNCHES_I64
+    enc_launches = (encode.LAUNCHES, encode.LAUNCHES_I64)
     # create_fasta_index resets the peak at its start
     peak = torch.cuda.max_memory_allocated(dev)
     meta = take_outputs(genome + f".{k:02d}.kin")
     log(table)
     log(f"index K={k}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
         f"(verify on, streaming input), peak device memory {peak} bytes, "
-        f"{len(chunks)} chunks of {cw} windows, {launches_i64} int64 sweep launches")
-    if launches_i64 != len(chunks) or launches != launches_i64:
-        raise AssertionError(f"K={k}: {launches_i64} int64 launches ({launches} in all) "
-                             f"for {len(chunks)} chunks")
+        f"{len(chunks)} chunks of {cw} windows, {launches_i64} int64 sweep launches, "
+        f"{enc_launches[1]} int64 encode launches")
+    if launches_i64 != len(chunks) or launches != launches_i64 \
+            or enc_launches != (len(chunks), len(chunks)):
+        raise AssertionError(f"K={k}: {launches_i64} int64 launches ({launches} in all), "
+                             f"encode {enc_launches}, for {len(chunks)} chunks")
 
     torch.cuda.empty_cache()
     (kern, plain), nk = replay(chunks, k, cw, dev,
@@ -828,9 +965,10 @@ def phase_k17(work, dev, genome):
             raise AssertionError(f"K={k}: .kin.json {key} differs from the replay plane's")
     if meta["num_kmers"] != nk:
         raise AssertionError(f"K={k}: num_kmers {meta['num_kmers']} != replay {nk}")
-    log(f"replay K={k}: kernel plane == plain plane ({4**k // 2} cells, torch.equal), "
+    log(f"replay K={k} (plain encoder): kernel plane == plain plane ({4**k // 2} cells, "
+        f"torch.equal), "
         f"its stats and num_kmers {nk} are the .kin's, vals_max {meta['vals_max']}")
-    return launches_i64, err, meta["output_file_cheksum"], peak
+    return (launches_i64, enc_launches[1]), err, meta["output_file_cheksum"], peak
 
 
 def device_blocks(n, k, n_shards=1):
@@ -1218,18 +1356,19 @@ def sharded_frames(genome, k, cw):
 def run_sharded(genome, k, mesh, label, total_bp, want_sha, n_chunks, **kw):
     """``create_fasta_index_sharded`` over ``mesh`` with verify on and the
     stage table on: the `.kin` sha256 must be ``want_sha`` and the sweep
-    launched (R·S)^2 times per step it ran. Returns (wall s, launches)."""
+    launched (R·S)^2 times and the encode kernel R·S times per step it ran.
+    Returns (wall s, sweep launches, encode launches)."""
     import torch
 
     from pykmer_tpu_torch.index import create_fasta_index_sharded
-    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops import encode, sweep
 
     rows = len(mesh.devices) * len(mesh.devices[0])
     n_steps = -(-n_chunks // rows)
     first = kw.pop("first_step", 0)
     os.environ["PYKMER_TPU_STAGE_TIMING"] = "1"
     err = io.StringIO()
-    sweep.LAUNCHES = sweep.LAUNCHES_I64 = 0
+    sweep.LAUNCHES = sweep.LAUNCHES_I64 = encode.LAUNCHES = encode.LAUNCHES_I64 = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(err):
@@ -1238,20 +1377,24 @@ def run_sharded(genome, k, mesh, label, total_bp, want_sha, n_chunks, **kw):
         os.environ.pop("PYKMER_TPU_STAGE_TIMING")
     wall = time.perf_counter() - t0
     launches, launches_i64 = sweep.LAUNCHES, sweep.LAUNCHES_I64
+    enc_launches = (encode.LAUNCHES, encode.LAUNCHES_I64)
     peak = torch.cuda.max_memory_allocated(mesh.first)
     meta = take_outputs(genome + f".{k:02d}.kin")
     log(err.getvalue().rstrip())
     log(f"sharded index K={k}, {label}: {total_bp} bp in {wall:.3f} s = "
         f"{total_bp / wall:.0f} bp/s (verify on), {n_steps - first} steps of {rows} rows "
-        f"x {SHARD_CW} windows, {launches} sweep launches ({launches_i64} int64), peak "
-        f"device memory {peak} bytes, output sha256 {meta['output_file_cheksum']}")
+        f"x {SHARD_CW} windows, {launches} sweep launches ({launches_i64} int64), encode "
+        f"launches {enc_launches[0]} ({enc_launches[1]} int64), peak device memory {peak} "
+        f"bytes, output sha256 {meta['output_file_cheksum']}")
     if meta["output_file_cheksum"] != want_sha:
         raise AssertionError(f"sharded K={k} {label}: .kin sha256 differs from the "
                              f"single-device run's")
-    if launches != (n_steps - first) * rows * rows:
-        raise AssertionError(f"sharded K={k} {label}: {launches} sweep launches, expected "
-                             f"{(n_steps - first) * rows * rows}")
-    return wall, launches
+    steps = n_steps - first
+    want_enc = (steps * rows, steps * rows if k > 15 else 0)
+    if launches != steps * rows * rows or enc_launches != want_enc:
+        raise AssertionError(f"sharded K={k} {label}: {launches} sweep launches, encode "
+                             f"{enc_launches}, expected {steps * rows * rows}, {want_enc}")
+    return wall, launches, enc_launches[0]
 
 
 def sharded_step_times(dev, mesh_shape, rows_np):
@@ -1311,7 +1454,7 @@ def phase_sharded_k15(work, dev, genome, total_bp, want_sha):
     import torch
 
     from pykmer_tpu_torch.index import sharded as sharded_mod
-    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops import encode, sweep
     from pykmer_tpu_torch.parallel import histogram, make_mesh, multihost
 
     k = SLICE_K
@@ -1350,17 +1493,20 @@ def phase_sharded_k15(work, dev, genome, total_bp, want_sha):
         raise AssertionError("the resumed run left its checkpoint behind")
 
     n_cards = torch.cuda.device_count()
-    sweep.LAUNCHES = 0
+    sweep.LAUNCHES = encode.LAUNCHES = 0
     wall, table = run_cli(["index", genome, "s", str(k), "--shards", str(n_cards),
                            "--device", str(dev), "--quiet"])
-    launches = sweep.LAUNCHES
+    launches, enc_launches = sweep.LAUNCHES, encode.LAUNCHES
     meta = take_outputs(genome + f".{k:02d}.kin")
     log(table)
     steps = -(-n_chunks // n_cards)
     log(f"sharded index K={k} via the CLI, --shards {n_cards}: {total_bp} bp in "
-        f"{wall:.3f} s = {total_bp / wall:.0f} bp/s (verify on), {launches} sweep launches")
-    if meta["output_file_cheksum"] != want_sha or launches != steps * n_cards**2:
-        raise AssertionError(f"CLI --shards {n_cards}: sha256 or {launches} launches off")
+        f"{wall:.3f} s = {total_bp / wall:.0f} bp/s (verify on), {launches} sweep launches, "
+        f"{enc_launches} encode launches")
+    if meta["output_file_cheksum"] != want_sha or launches != steps * n_cards**2 \
+            or enc_launches != steps * n_cards:
+        raise AssertionError(f"CLI --shards {n_cards}: sha256, {launches} sweep or "
+                             f"{enc_launches} encode launches off")
 
     rows = histogram.shard_batch_chunks_packed(padded, k, SHARD_CW, 4, n_chunks // 8)
     del padded
@@ -1403,8 +1549,8 @@ def phase_sharded_k17(dev, genome, total_bp, want_sha):
     _, n_chunks = sharded_frames(genome, k, SHARD_CW)
     for n_shards in K17_SHARDS:
         mesh = make_mesh(devices=[dev] * n_shards)
-        _, launches = run_sharded(genome, k, mesh, f"mesh 1x{n_shards} on {dev}",
-                                  total_bp, want_sha, n_chunks)
+        _, launches, _ = run_sharded(genome, k, mesh, f"mesh 1x{n_shards} on {dev}",
+                                     total_bp, want_sha, n_chunks)
         want_i64 = launches if 4**k // 2 // n_shards > 2**31 - 1 else 0
         if sweep.LAUNCHES_I64 != want_i64:
             raise AssertionError(f"K={k} over {n_shards} shards: {sweep.LAUNCHES_I64} int64 "
@@ -1421,12 +1567,12 @@ def mh_worker(argv):
     import torch
 
     from pykmer_tpu_torch.index import create_fasta_index_multihost
-    from pykmer_tpu_torch.ops import sweep
+    from pykmer_tpu_torch.ops import encode, sweep
 
     peak_rss = rss_sampler()
     pid, nproc, port, path, k = int(argv[0]), int(argv[1]), argv[2], argv[3], int(argv[4])
     dev = torch.device("cuda", 0)
-    sweep.LAUNCHES = sweep.LAUNCHES_I64 = 0
+    sweep.LAUNCHES = sweep.LAUNCHES_I64 = encode.LAUNCHES = 0
     t0 = time.perf_counter()
     header = create_fasta_index_multihost(
         path, "s", path, k, coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
@@ -1435,6 +1581,7 @@ def mh_worker(argv):
     launches, launches_i64 = sweep.LAUNCHES, sweep.LAUNCHES_I64
     print(json.dumps({
         "pid": pid, "wall_s": wall, "launches": launches, "launches_i64": launches_i64,
+        "encode_launches": encode.LAUNCHES,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "peak_rss_bytes": peak_rss(),  # sampled every 50 ms
         "header": header is not None,
@@ -1566,8 +1713,9 @@ def mh_rows_times(dev, genome, k, cw):
 def phase_multihost(work, dev, genome, gz, total_bp, sha15, sha17):
     """Phase 11: two processes of one gloo job on the one card. (a) K=15
     through the CLI, then in worker mode; (b) the gzip -1 copy through the
-    CLI; (c) K=17 in worker mode. Returns (summed K=15 launches, the rows'
-    (err, ms, plain ms, bound ms))."""
+    CLI; (c) K=17 in worker mode. Returns (the K=15 worker job's sweep and
+    encode launches, summed over the processes; the rows' (err, ms, plain
+    ms, bound ms))."""
     import glob
 
     import torch
@@ -1611,18 +1759,20 @@ def phase_multihost(work, dev, genome, gz, total_bp, sha15, sha17):
         steps = [mh_frames(genome, pid, k, cw)[1] for pid in range(n)]
         launches = sum(r["launches"] for r in res)
         launches_i64 = sum(r["launches_i64"] for r in res)
+        enc_launches = sum(r["encode_launches"] for r in res)
         log(f"multi-host {label}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
             f"(verify on), steps per process {steps}, {launches} sweep launches "
-            f"({launches_i64} int64), output sha256 {meta['output_file_cheksum']}")
+            f"({launches_i64} int64), {enc_launches} encode launches, output sha256 "
+            f"{meta['output_file_cheksum']}")
         if meta["output_file_cheksum"] != want_sha:
             raise AssertionError(f"multi-host {label}: .kin sha256 differs from the "
                                  f"single-card run's")
         want_i64 = sum(steps) if 4**k // 2 > 2**31 - 1 else 0
-        if launches != sum(steps) or launches_i64 != want_i64 \
+        if launches != sum(steps) or launches_i64 != want_i64 or enc_launches != sum(steps) \
                 or [r["header"] for r in res] != [True] + [False] * (n - 1):
             raise AssertionError(f"multi-host {label}: {launches} launches ({launches_i64} "
-                                 f"int64) for steps {steps}")
-        return launches, res
+                                 f"int64), {enc_launches} encode launches for steps {steps}")
+        return (launches, enc_launches), res
 
     meta = cli_job(genome, SLICE_K, f"K={SLICE_K} via the CLI")
     if meta["output_file_cheksum"] != sha15:
@@ -1684,10 +1834,12 @@ def main():
     os.makedirs(work)
     try:
         k15_sweep, k17_sweep = phase_kernels(dev)
+        enc_times, halo_launches = phase_encode(dev)
         phase_merge_fanin(work, dev)
         small_fa = phase_oracle(work, dev)
-        launches, genome, chunks, cw, total_bp, sha, choice = phase_slice(work, dev)
-        gz = phase_k15_variants(work, dev, genome, total_bp, sha)
+        (launches, enc_launches), genome, chunks, cw, total_bp, sha, choice = \
+            phase_slice(work, dev)
+        gz = phase_k15_variants(work, dev, genome, total_bp, sha, cw)
         phase_k15_modes(dev, genome, total_bp, sha, choice)
         chunk_step_times(dev, chunks[len(chunks) // 2], cw)
         del chunks
@@ -1699,10 +1851,12 @@ def main():
         sharded_err = phase_sharded_vs_cpu(dev, rows)
         del rows
         phase_k17_oracle(work, dev, small_fa)
-        launches_i64, replay_err, k17_sha, k17_peak = phase_k17(work, dev, genome)
+        (launches_i64, enc_launches_i64), replay_err, k17_sha, k17_peak = \
+            phase_k17(work, dev, genome)
         phase_k17_pieces(work, genome, total_bp, k17_sha, k17_peak)
         phase_sharded_k17(dev, genome, total_bp, k17_sha)
-        mh_launches, mh_rows = phase_multihost(work, dev, genome, gz, total_bp, sha, k17_sha)
+        (mh_launches, _), mh_rows = phase_multihost(work, dev, genome, gz, total_bp, sha,
+                                                    k17_sha)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1732,6 +1886,30 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": "bytes",
             # no PyTorch call computes a saturating uint8 accumulate
+            "library_ms": None,
+        })
+    # launches: the K=15 index (phase 4), the K=17 index (phase 6), the halo
+    # encoder's run (phase 2b); times: phase 2b's masked 2^24-window chunks
+    for name, n, key, replaces in (
+            ("encode_packed_i32", enc_launches, ("packed", 15, "masked"),
+             "pykmer_tpu/ops/encode.py:154"),
+            ("encode_packed_i64", enc_launches_i64, ("packed", 17, "masked"),
+             "pykmer_tpu/ops/encode.py:154"),
+            ("encode_bases", halo_launches, ("bases", HALO_K, "masked"),
+             "pykmer_tpu/ops/encode.py:69")):
+        err, ms, plain_ms, bound_ms = enc_times[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pykmer_tpu_torch/csrc/encode.cu",
+            "replaces": replaces,
+            "launches": n,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            # no PyTorch call computes canonical k-mer codes
             "library_ms": None,
         })
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,8 +1,8 @@
 """The single-device index path: FASTA → `.kin` + `.kin.json`.
 
 Port of ``create_fasta_index`` (``pykmer_tpu/index/indexer.py``). Per chunk
-the device runs step A (unpack, canonical encode, fold, keys-only sort,
-valid-window count). Two strategies apply the sorted codes:
+the device runs step A (the folded canonical encode of the packed planes,
+keys-only sort, valid-window count). Two strategies apply the sorted codes:
 
 - **device**: step B, the saturating sweep kernel, updates the flat folded
   uint8 plane, which stays on the device for the whole run (K=17's 8 GiB
@@ -47,12 +47,7 @@ from ..host.chunks import chunk_stream, iter_chunks_packed_lazy
 from ..host.decode import decode_joined_bytes
 from ..host.pipeline import iter_pipelined_chunks
 from ..host.segments import StreamingInput
-from ..ops.encode import (
-    canonical_codes,
-    fold_codes,
-    unpack_base_2bit,
-    unpack_base_2bit_mask,
-)
+from ..ops.encode import canonical_codes_packed
 from ..ops import packing
 from ..ops.histogram import sort_codes_fast
 from ..ops.readback import stream_plane_to_out, stream_sparse_pieces
@@ -300,13 +295,12 @@ def chunk_sorted_codes(
     a 0-d int64 tensor on the chunk's device).
 
     ``maskbits`` None marks an all-valid chunk (no Ns, separators or
-    padding), which skips the mask upload and unpack. The codes sort as
+    padding), which skips the mask upload. On CUDA the encode is the packed
+    kernel (``ops/encode.canonical_codes_packed``). The codes sort as
     int32 while the folded plane has at most ``MAX_INT32_SORT_CELLS`` cells
     (K <= 15), as int64 beyond."""
     fold_size = 4**kmer_len // 2
-    chunk = unpack_base_2bit(bases2, span) if maskbits is None \
-        else unpack_base_2bit_mask(bases2, maskbits, span)
-    codes = fold_codes(canonical_codes(chunk, kmer_len), kmer_len)
+    codes = canonical_codes_packed(bases2, maskbits, span, kmer_len)
     nvalid = (codes < fold_size).sum(dtype=torch.int64)
     sort_dt = torch.int32 if fold_size <= MAX_INT32_SORT_CELLS else torch.int64
     return sort_codes_fast(codes.to(sort_dt)), nvalid

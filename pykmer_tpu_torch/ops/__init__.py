@@ -1,6 +1,7 @@
 """Device programs of the index path.
 
-- ``encode``    : canonical k-mer codes (torch ops)
+- ``encode``    : canonical k-mer codes: the CUDA encode kernels' wrappers
+                and their plain torch versions
 - ``histogram`` : keys-only sort + the plain saturating accumulate
 - ``sweep``     : the CUDA saturating-sweep kernel's wrapper
 - ``readback``  : the chased device→host tail: copy, unfold, write + hash,

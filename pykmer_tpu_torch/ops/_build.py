@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``csrc/`` at first use and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper) into one shared
-library with a plain C interface, under ``build/kernels/`` at the root of the
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process a
+source, all started together, and links the objects into one shared library
+with a plain C interface, under ``build/kernels/`` at the root of the
 checkout. The file name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree loads the cached library. Only the kernel
 wrappers import this module, and only when a CUDA tensor reaches them, so the
@@ -22,10 +23,14 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+# the flags of a one-step build of a shared library (``scripts/`` builds its
+# variants so); the library here compiles each source with them, less
+# ``-shared``, and links the objects with ``-shared``
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+_COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"]
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -63,13 +68,50 @@ def _digest(paths) -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    for name in ("pykmer_sweep_sorted_i32", "pykmer_sweep_sorted_i64"):
-        fn = getattr(lib, name)
-        # pointers and the stream as c_void_p, sizes as int64: the ctypes
-        # default (C int) would cut both to 32 bits
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    # pointers and the stream as c_void_p, sizes as int64: the ctypes
+    # default (C int) would cut both to 32 bits
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    signatures = {
+        # (plane, n_cells, codes, m, stream)
+        "pykmer_sweep_sorted": [ptr, i64, ptr, i64, ptr],
+        # (bases2, bytes, maskbits or NULL, bytes, windows, K, out, stream)
+        "pykmer_encode_packed": [ptr, i64, ptr, i64, i64, i64, ptr, ptr],
+        # (chunk, bases, K, out, stream)
+        "pykmer_encode_bases": [ptr, i64, i64, ptr, ptr],
+    }
+    for stem, argtypes in signatures.items():
+        for suffix in ("_i32", "_i64"):
+            fn = getattr(lib, stem + suffix)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+
+def _compile_and_link(srcs, so: str) -> str:
+    """Compile ``srcs`` in parallel, link them into ``so``; returns nvcc's
+    output. Raises with that output if a step fails."""
+    nvcc = _nvcc()
+    work = f"{so}.{os.getpid()}.d"
+    os.makedirs(work, exist_ok=True)
+    try:
+        objs = [os.path.join(work, os.path.basename(src) + ".o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *_COMPILE_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed ({[p.returncode for p in procs]}):\n{log}")
+        tmp = os.path.join(work, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)  # atomic: a concurrent build sees all or none
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return log
 
 
 def load() -> ctypes.CDLL:
@@ -83,16 +125,7 @@ def load() -> ctypes.CDLL:
         if os.path.exists(so):
             BUILD_LOG = f"loaded cached {so}"
         else:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                capture_output=True, text=True,
-            )
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-            os.replace(tmp, so)  # atomic: a concurrent builder sees all or none
+            BUILD_LOG = _compile_and_link(srcs, so)
         lib = ctypes.CDLL(so)
         _bind(lib)
         _LIB = lib

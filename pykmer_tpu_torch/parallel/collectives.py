@@ -8,6 +8,9 @@ copies:
 - :func:`all_to_all` along ``shards`` (``jax.lax.all_to_all(..., tiled=True)``):
   row j of source i goes to shard j, stacked in source order;
 - :func:`all_gather` along ``data`` (``jax.lax.all_gather(..., tiled=True)``);
+- :func:`ppermute` (``jax.lax.ppermute``): part i goes to position j for
+  each pair (i, j) of a permutation, the halo exchange of
+  ``parallel/encode.py``;
 - :func:`psum` and :func:`pmax` of per-position 0-d or small tensors, into
   one device.
 
@@ -21,7 +24,7 @@ stacks rows into one buffer. Nothing here synchronises the host.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -77,6 +80,24 @@ def all_gather(
     if len(parts) == 1:
         return [move(parts[0], devices[0])]
     return [_stack_into(parts, dst).flatten(0, 1) for dst in devices]
+
+
+def ppermute(
+    parts: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]
+) -> List[torch.Tensor]:
+    """``parts[i]`` lies on position i's device; for each ``(src, dst)`` of
+    ``perm`` returns ``parts[src]`` on ``parts[dst]``'s device at index dst,
+    and zeros where no pair names dst as its destination (as
+    ``jax.lax.ppermute``). No source or destination may repeat."""
+    n = len(parts)
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if any(not 0 <= i < n for i in srcs + dsts) \
+            or len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute over {n} positions got the permutation {list(perm)}")
+    out = [None] * n
+    for src, dst in perm:
+        out[dst] = move(parts[src], parts[dst].device)
+    return [torch.zeros_like(p) if o is None else o for p, o in zip(parts, out)]
 
 
 def psum(values: Sequence[torch.Tensor], dst: torch.device) -> torch.Tensor:

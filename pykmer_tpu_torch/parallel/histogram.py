@@ -10,7 +10,7 @@ plane is the column-major interleave of the per-shard planes
 Per step, at each position (r, s) of the ``[R, S]`` mesh, on its device:
 
 1. upload its row of packed bases and validity bits, encode and fold
-   (``ops/encode``);
+   (``ops/encode.canonical_codes_packed``, the packed kernel on CUDA);
 2. key each window ``owner·local_size + local`` (invalid windows key past
    every bucket) and sort the keys, so each destination's codes are
    contiguous;
@@ -48,7 +48,7 @@ import torch
 
 from ..host.chunks import pack_base_stream
 from ..index.indexer import ChunkUploader
-from ..ops.encode import canonical_codes, code_dtype, fold_codes, unpack_base_2bit_mask
+from ..ops.encode import canonical_codes_packed, code_dtype
 from ..ops.histogram import sort_codes_fast
 from ..ops.sweep import accumulate_sorted
 from .collectives import all_gather, all_to_all, pmax, psum
@@ -167,8 +167,7 @@ def make_sharded_accumulate(
         """One position's (send [S, capacity] local indices, valid windows,
         largest bucket), on the row's device."""
         dev = bases2.device
-        codes = fold_codes(canonical_codes(
-            unpack_base_2bit_mask(bases2, maskbits, span), kmer_len), kmer_len)
+        codes = canonical_codes_packed(bases2, maskbits, span, kmer_len)
         valid = codes < fold_size
         num_valid = valid.sum(dtype=torch.int64)
         key = (codes & (n_shards - 1)) * local_size + (codes >> shard_bits)

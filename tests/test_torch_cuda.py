@@ -15,7 +15,8 @@ import torch
 
 from pykmer_tpu_torch.config import IndexConfig
 from pykmer_tpu_torch import create_fasta_index
-from pykmer_tpu_torch.ops import sweep
+from pykmer_tpu_torch.host.chunks import pack_base_stream
+from pykmer_tpu_torch.ops import encode, sweep
 from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
 
 pytestmark = pytest.mark.cuda
@@ -154,6 +155,104 @@ def test_kernel_int64_codes_above_2_31(cuda):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert int(a[(1 << 31) + 5]) == 255
+
+
+# ---- the encode kernels (csrc/encode.cu) -------------------------------------
+
+ENCODE_K = [1, 15, 17, 19, 21, 31]
+ENCODE_BLOCK = 2048  # windows a block of the encode kernels covers
+
+
+def _packed_planes(rng, span, masked):
+    """(bases2, maskbits or None) of ``span`` random bases as
+    ``pack_base_stream`` packs them, cut to the chunk's bytes (not padded);
+    a masked chunk holds scattered invalid bases and a run of 40."""
+    codes = rng.integers(0, 4, size=span).astype(np.uint8)
+    if masked:
+        codes[rng.random(span) < 0.02] = 4
+        codes[span // 3 : span // 3 + 40] = 4
+    b, m = pack_base_stream(codes)
+    return b[: (span + 3) // 4], (m[: (span + 7) // 8] if masked else None)
+
+
+def _packed_vs_plain(db, dm, span, kmer_len):
+    before = (encode.LAUNCHES, encode.LAUNCHES_I64)
+    got = encode.canonical_codes_packed(db, dm, span, kmer_len)
+    torch.cuda.synchronize()
+    assert (encode.LAUNCHES, encode.LAUNCHES_I64) == (before[0] + 1,
+                                                      before[1] + (kmer_len > 15))
+    want = encode.canonical_codes_packed_plain(db, dm, span, kmer_len)
+    assert got.dtype == encode.code_dtype(kmer_len) == want.dtype
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("kmer_len", ENCODE_K)
+@pytest.mark.parametrize("masked", [True, False])
+# windows beyond K: one window, two, a block and one, many blocks and a ragged end
+@pytest.mark.parametrize("extra", [0, 1, ENCODE_BLOCK, 37 * ENCODE_BLOCK + 5])
+def test_encode_kernel_packed_matches_plain(cuda, kmer_len, masked, extra):
+    span = kmer_len + extra
+    b, m = _packed_planes(np.random.default_rng(kmer_len * 1000 + extra), span, masked)
+    got = _packed_vs_plain(torch.from_numpy(b).to(cuda),
+                           None if m is None else torch.from_numpy(m).to(cuda),
+                           span, kmer_len)
+    if masked:
+        assert bool((got == 4**kmer_len // 2).any())
+
+
+@pytest.mark.parametrize("kmer_len", [15, 31])
+def test_encode_kernel_packed_unaligned_views(cuda, kmer_len):
+    """Planes that start at odd byte offsets of larger buffers and carry
+    trailing bytes past the span (the kernel reads bytes, guarded at each
+    plane's end)."""
+    span = (1 << 16) + 3
+    b, m = _packed_planes(np.random.default_rng(kmer_len), span, True)
+    big_b = torch.zeros(b.shape[0] + 20, dtype=torch.uint8, device=cuda)
+    big_m = torch.zeros(m.shape[0] + 20, dtype=torch.uint8, device=cuda)
+    big_b[3 : 3 + b.shape[0]] = torch.from_numpy(b).to(cuda)
+    big_m[5 : 5 + m.shape[0]] = torch.from_numpy(m).to(cuda)
+    _packed_vs_plain(big_b[3 : 3 + b.shape[0] + 7], big_m[5 : 5 + m.shape[0] + 9],
+                     span, kmer_len)
+
+
+@pytest.mark.parametrize("kmer_len", ENCODE_K)
+@pytest.mark.parametrize("extra", [0, 1, 41 * ENCODE_BLOCK + 3])
+def test_encode_kernel_bases_matches_plain(cuda, kmer_len, extra):
+    """The bases entry (unfolded codes, sentinel 4^K) with invalid bases of
+    the codes 4, 5 and 255."""
+    rng = np.random.default_rng(kmer_len + extra)
+    n = kmer_len + extra
+    chunk = rng.integers(0, 4, size=n).astype(np.uint8)
+    chunk[rng.random(n) < 0.02] = 4
+    chunk[rng.integers(0, n, size=3)] = 5
+    chunk[rng.integers(0, n, size=3)] = 255
+    dc = torch.from_numpy(chunk).to(cuda)
+    before = encode.BASES_LAUNCHES
+    got = encode.canonical_codes(dc, kmer_len)
+    torch.cuda.synchronize()
+    assert encode.BASES_LAUNCHES == before + 1
+    want = encode.canonical_codes_plain(dc, kmer_len)
+    assert got.dtype == encode.code_dtype(kmer_len) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_data,n_shards", [(1, 8), (2, 2)])
+def test_encode_kernel_halo_on_card_matches_cpu(cuda, n_data, n_shards):
+    """make_halo_encode at K=19 on logical shards of the card against the
+    same mesh on the CPU; one bases-kernel launch per position."""
+    from pykmer_tpu_torch.parallel import make_halo_encode, make_mesh
+
+    k, shard_len = 19, 4096 + 7
+    rng = np.random.default_rng(19)
+    seq = rng.integers(0, 4, size=n_shards * shard_len).astype(np.uint8)
+    seq[rng.random(seq.shape[0]) < 0.01] = 4
+    before = encode.BASES_LAUNCHES
+    got = make_halo_encode(make_mesh(n_shards, n_data, devices=[cuda] * (n_data * n_shards)),
+                           k, shard_len)(seq)
+    torch.cuda.synchronize()
+    assert encode.BASES_LAUNCHES == before + n_data * n_shards
+    want = make_halo_encode(make_mesh(n_shards, n_data, device="cpu"), k, shard_len)(seq)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
 
 
 def test_index_cuda_matches_cpu(cuda, tmp_path):

@@ -108,3 +108,92 @@ def test_chunk_sorted_codes_matches_jax_step_a(kmer_len, packed_encode):
         _same(t_sorted, j_sorted)
         assert int(t_nvalid) == int(j_nk)
     assert seen == {True, False}
+
+
+# ---- canonical_codes_packed: the CUDA kernel's entry, plain on the CPU ------
+
+@pytest.mark.parametrize("kmer_len", [1, 3, 5, 7, 11, 13, 15])
+def test_packed_encoder_matches_jax_packed(kmer_len):
+    """The port's canonical_codes_packed against the JAX package's bit-field
+    encoder, masked on every chunk and mask-free on every chunk (the
+    mask-free form reads invalid bases as their packed code 0 in both)."""
+    chunks, span = _packed_chunks(kmer_len)
+    for b, m in chunks:
+        tb, jb = torch.from_numpy(b), jnp.asarray(b)
+        _same(tenc.canonical_codes_packed(tb, torch.from_numpy(m), span, kmer_len),
+              jenc.canonical_codes_packed(jb, jnp.asarray(m), span, kmer_len))
+        _same(tenc.canonical_codes_packed(tb, None, span, kmer_len),
+              jenc.canonical_codes_packed(jb, None, span, kmer_len))
+
+
+@pytest.mark.parametrize("kmer_len", [17, 19, 21])
+def test_packed_encoder_matches_jax_slice_fold(kmer_len):
+    """Above K=15 (int64 codes) the JAX package has only its slice encoder:
+    unpack, canonical_codes, fold_codes; the port's packed entry must give
+    the same codes, masked and mask-free."""
+    chunks, span = _packed_chunks(kmer_len)
+    for b, m in chunks:
+        tb, jb = torch.from_numpy(b), jnp.asarray(b)
+        want = jenc.fold_codes(jenc.canonical_codes(
+            jenc.unpack_base_2bit_mask(jb, jnp.asarray(m), span), kmer_len), kmer_len)
+        _same(tenc.canonical_codes_packed(tb, torch.from_numpy(m), span, kmer_len), want)
+        want = jenc.fold_codes(jenc.canonical_codes(
+            jenc.unpack_base_2bit(jb, span), kmer_len), kmer_len)
+        _same(tenc.canonical_codes_packed(tb, None, span, kmer_len), want)
+
+
+@pytest.mark.parametrize("kmer_len", [1, 19, 21, 31])
+def test_bases_encoder_matches_jax(kmer_len):
+    """canonical_codes (the halo encoder's entry) on chunks with invalid
+    bases of several codes (4, 5, 255), up to K=31."""
+    rng = np.random.default_rng(kmer_len)
+    chunk = rng.integers(0, 4, size=900).astype(np.uint8)
+    chunk[rng.random(900) < 0.01] = 4
+    chunk[rng.integers(0, 900, size=3)] = 5
+    chunk[rng.integers(0, 900, size=3)] = 255
+    _same(tenc.canonical_codes(torch.from_numpy(chunk), kmer_len),
+          jenc.canonical_codes(jnp.asarray(chunk), kmer_len))
+
+
+def test_packed_encoder_rejects_what_the_kernel_cannot_take():
+    b = torch.zeros(8, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="kmer_len"):
+        tenc.canonical_codes_packed(b, None, 32, 32)
+    with pytest.raises(ValueError, match="shorter than one window"):
+        tenc.canonical_codes_packed(b, None, 4, 5)
+    with pytest.raises(ValueError, match="bases, span"):
+        tenc.canonical_codes_packed(b, None, 33, 5)
+    with pytest.raises(ValueError, match="bits, span"):
+        tenc.canonical_codes_packed(b, torch.zeros(2, dtype=torch.uint8), 20, 5)
+    with pytest.raises(ValueError, match="uint8"):
+        tenc.canonical_codes_packed(b.to(torch.int32), None, 20, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tenc.canonical_codes(torch.zeros(40, dtype=torch.uint8)[::2], 5)
+
+
+# ---- K >= 19 at reduced scale ------------------------------------------------
+
+@pytest.mark.parametrize("top", [1 << 38, 1 << 42])
+def test_sort_codes_fast_int64_large_codes_match_jax(top):
+    """int64 codes up to 2^42 (K=21's unfolded sentinel) with the K=19 and
+    K=21 folded and unfolded sentinels, sorted as the JAX package sorts."""
+    from pykmer_tpu.ops.histogram import sort_codes_fast as jsort
+    from pykmer_tpu_torch.ops.histogram import sort_codes_fast
+
+    rng = np.random.default_rng(top.bit_length())
+    codes = rng.integers(0, top, size=5000, dtype=np.int64)
+    codes[rng.integers(0, 5000, size=400)] = 4**19 // 2
+    codes[rng.integers(0, 5000, size=200)] = 4**19
+    codes[rng.integers(0, 5000, size=100)] = min(4**21, top)
+    codes[:50] = codes[50]  # a run
+    _same(sort_codes_fast(torch.from_numpy(codes)), jsort(jnp.asarray(codes)))
+
+
+@pytest.mark.parametrize("kmer_len,want", [(17, "device"), (19, "host"), (21, "host")])
+def test_strategy_on_an_80gb_card(kmer_len, want):
+    """K=17's 8 GiB folded plane fits an 80 GB card; K=19's 128 GiB does
+    not, so the CUDA strategy is the host's."""
+    from pykmer_tpu_torch.config import resolve_strategy
+
+    assert resolve_strategy(kmer_len, "auto", "cuda", 80e9) == want
+    assert tenc.code_dtype(kmer_len) == torch.int64

@@ -123,6 +123,21 @@ def test_collectives_order():
         collectives.all_to_all(send[:2], devs)
 
 
+def test_ppermute_order():
+    """jax.lax.ppermute's semantics: part i lands at j for each (i, j);
+    positions no pair sends to receive zeros; a repeated source or
+    destination, or a position out of range, raises."""
+    parts = [torch.full((2,), 10 * i + 1) for i in range(4)]
+    ring = collectives.ppermute(parts, [(i, (i - 1) % 4) for i in range(4)])
+    for j in range(4):
+        assert torch.equal(ring[j], parts[(j + 1) % 4])
+    out = collectives.ppermute(parts, [(0, 2), (3, 1)])
+    assert [o.tolist() for o in out] == [[0, 0], [31, 31], [1, 1], [0, 0]]
+    for bad in ([(0, 1), (2, 1)], [(0, 1), (0, 2)], [(0, 4)], [(-1, 0)]):
+        with pytest.raises(ValueError, match="ppermute"):
+            collectives.ppermute(parts, bad)
+
+
 # ---- the sharded step --------------------------------------------------------
 
 def _run_both(seq, k, cw, n_data, n_shards, capacity_factor=2.0, check_each=True):
