@@ -17,16 +17,23 @@ Phases — each one passes or raises, and any failure exits non-zero:
    and its share of it; then the card tests of the kernel's edges (runs
    over block boundaries, ragged and tiny batches, unaligned codes views,
    the bands, int64 codes above 2^31) and of the encode kernels (K from 1 to
-   31, ragged spans, unaligned planes, invalid bases, the halo encoder):
+   31, ragged spans, the fused count, planes at every byte offset 0..15, an
+   all-invalid chunk, invalid bases, the halo encoder):
    ``tests/test_torch_cuda.py -k "test_kernel_ or test_encode_kernel_"``,
    in a pytest subprocess;
 2b. the encode kernels vs their plain torch versions on the card, with
    ``torch.equal``: 2^24-window chunks at K=15 (int32), 17 and 19 (int64),
-   the packed entry on masked and all-valid planes and the bases entry with
-   and without invalid bases; median kernel and plain times beside the
-   kernel's bound (the planes read once and the codes written once, at
-   3.35 TB/s); then the halo encoder at K=19 on ``[cuda:0] * 8`` against
-   ``[cpu] * 8``, one bases-kernel launch per shard;
+   the packed entry on masked and all-valid planes (its fused valid-window
+   count equal to the plain count) and the bases entry with and without
+   invalid bases; median kernel and plain times beside the kernel's bound
+   (the planes read once and the codes written once, at 3.35 TB/s); then
+   ``scripts/bench_encode_variants.py``'s comparison in this process: both
+   entries timed beside their earlier design (``scripts/encode_variants.cu``,
+   built by its own nvcc started beside the port's), each checked against
+   the plain encoder, and the SASS instructions of each encode kernel where
+   ``cuobjdump`` is present; then the halo encoder at K=15 and K=19 on
+   ``[cuda:0] * 8`` against ``[cpu] * 8``, one bases-kernel launch per
+   shard;
 3. oracle: a small FASTA (Ns, several records, an empty one) indexed at K=11
    through ``python -m pykmer_tpu_torch index`` gives the `.kin` and stats of
    the port's copy of the numpy oracle (``pykmer_tpu_torch.oracle``);
@@ -48,7 +55,8 @@ Phases — each one passes or raises, and any failure exits non-zero:
    sparse run's segments overflowed the token caps and took the 2-bit
    fallback;
 5. where the time goes: one chunk's steps timed with CUDA events (the
-   encode kernel and the plain encode apart), then a
+   encode kernel with its fused count, the plain encode, and the count pass
+   that step A no longer runs, apart), then a
    second index run of the genome under ``torch.profiler``, whose device
    activity (kernels and copies, overlaps merged) gives the busy and idle
    shares of its wall time;
@@ -116,7 +124,7 @@ Phases — each one passes or raises, and any failure exits non-zero:
    K=17 its peak device memory and peak host RSS. A worker that fails or
    times out fails the phase, and every worker is reaped;
 12. a JSON line of the kernels (the sweep's four rows, the encode
-   kernels' three), then the last line
+   kernels' four), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2b runs after phase 2, phases 7-9 between phases 2b and 3 (7, with 10c) and after phase 5 (8,
@@ -165,6 +173,7 @@ MH_PROCESSES = 2  # processes of the multi-host job (phase 11), on the one card
 ENCODE_K = (15, 17, 19)  # phase 2b: int32 codes, then int64 (K=19's are the halo's)
 ENCODE_WINDOWS = 1 << 24  # windows per chunk on CUDA at every K
 HALO_K, HALO_SHARDS, HALO_SHARD_LEN = 19, 8, 1 << 20  # the halo encoder's run
+HALO_K32 = 15  # the halo encoder's int32 run (the bases entry's 32-bit path)
 MH_TIMEOUT_S = 400  # a multi-host run's limit: its workers are killed after it
 
 
@@ -289,9 +298,10 @@ def kernel_edge_cases():
     of it, one run over the whole batch, m = 1, codes views at unaligned
     offsets, the sentinel / -1 / int32-max bands, int64 codes above 2^31)
     and of the encode kernels' (K = 1, 15, 17, 19, 21, 31, spans of one
-    window to many blocks with a ragged end, planes at unaligned offsets,
-    invalid bases, the halo encoder on the card), each exactly against the
-    plain version, in a pytest subprocess."""
+    window to many blocks with a ragged end, the fused valid-window count,
+    planes at every byte offset 0..15, an all-invalid chunk, invalid bases,
+    the halo encoder on the card), each exactly against the plain version,
+    in a pytest subprocess."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -377,16 +387,20 @@ def encode_vs_plain(label, kernel, plain, bound_bytes):
     return err, min(t_kernel), min(t_plain), bound
 
 
-def phase_encode(dev):
+def phase_encode(dev, variants_build):
     """Phase 2b: the encode kernels against their plain versions at the main
-    path's chunk size, K = 15, 17, 19, both entries, masked and all-valid;
-    then the halo encoder at K=19 on ``[cuda:0] * 8`` against ``[cpu] * 8``.
-    Returns ({(entry, K, variant): (err, ms, plain ms, bound ms)}, the halo
-    run's bases-kernel launches)."""
+    path's chunk size, K = 15, 17, 19, both entries, masked and all-valid
+    (the packed entry with its fused count, checked against the plain
+    count); then both entries beside their earlier design
+    (``scripts/bench_encode_variants.py``, whose library ``variants_build``
+    is building); then the halo encoder at K=15 and K=19 on ``[cuda:0] * 8``
+    against ``[cpu] * 8``. Returns ({(entry, K, variant): (err, ms, plain
+    ms, bound ms)}, {K: the halo run's bases-kernel launches})."""
     import numpy as np
     import torch
 
-    from pykmer_tpu_torch.ops import encode
+    import bench_encode_variants as bev
+    from pykmer_tpu_torch.ops import _build, encode
     from pykmer_tpu_torch.parallel import make_halo_encode, make_mesh
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -395,39 +409,56 @@ def phase_encode(dev):
         span, bases2, maskbits, chunk, clean = encode_planes(dev, k, gen)
         m = span - k + 1
         code_bytes = m * torch.empty((), dtype=encode.code_dtype(k)).element_size()
+        count = torch.zeros((), dtype=torch.int64, device=dev)
         for variant, mb in (("masked", maskbits), ("all-valid", None)):
             in_bytes = bases2.numel() + (0 if mb is None else mb.numel())
+            count.zero_()
+            codes = encode.canonical_codes_packed(bases2, mb, span, k, count=count)
+            want = int((encode.canonical_codes_packed_plain(bases2, mb, span, k)
+                        < 4**k // 2).sum())
+            if int(count) != want or int((codes < 4**k // 2).sum()) != want:
+                raise AssertionError(f"encode packed K={k} {variant}: fused count "
+                                     f"{int(count)}, plain count {want}")
+            log(f"encode packed K={k} {variant}: fused count {int(count)} == plain count")
+            del codes
             out[("packed", k, variant)] = encode_vs_plain(
                 f"packed K={k} {variant}",
-                lambda: encode.canonical_codes_packed(bases2, mb, span, k),
+                lambda: encode.canonical_codes_packed(bases2, mb, span, k, count=count),
                 lambda: encode.canonical_codes_packed_plain(bases2, mb, span, k),
                 in_bytes + code_bytes)
         for variant, c in (("masked", chunk), ("all-valid", clean)):
             out[("bases", k, variant)] = encode_vs_plain(
                 f"bases K={k} {variant}", lambda: encode.canonical_codes(c, k),
                 lambda: encode.canonical_codes_plain(c, k), c.numel() + code_bytes)
-        del bases2, maskbits, chunk, clean
+        del bases2, maskbits, chunk, clean, count
         torch.cuda.empty_cache()
+
+    vlib = bev.finish_build(variants_build)
+    bev.log_sass({"port": bev.sass_counts(_build.load()._name),
+                  "earlier design": bev.sass_counts(variants_build[0])}, log)
+    log("encode variants (scripts/bench_encode_variants.py): " + json.dumps(
+        bev.compare(dev, log, vlib)))
 
     rng = np.random.default_rng(SEED)
     seq = rng.integers(0, 4, size=HALO_SHARDS * HALO_SHARD_LEN).astype(np.uint8)
     seq[rng.random(seq.shape[0]) < 0.01] = 4
     mesh = make_mesh(HALO_SHARDS, devices=[dev] * HALO_SHARDS)
-    encode.BASES_LAUNCHES = 0
-    t0 = time.perf_counter()
-    got = make_halo_encode(mesh, HALO_K, HALO_SHARD_LEN)(seq)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = encode.BASES_LAUNCHES
-    want = make_halo_encode(make_mesh(HALO_SHARDS, device="cpu"), HALO_K,
-                            HALO_SHARD_LEN)(seq)
-    if not torch.equal(got.cpu(), want) or launches != HALO_SHARDS:
-        raise AssertionError(f"halo encoder K={HALO_K}: the card's codes differ from the "
-                             f"CPU mesh's, or {launches} launches for {HALO_SHARDS} shards")
-    log(f"halo encoder K={HALO_K} on {dev} x{HALO_SHARDS}, {HALO_SHARD_LEN} bases a shard: "
-        f"torch.equal to [cpu] x{HALO_SHARDS}, {launches} bases-kernel launches, "
-        f"{wall:.3f} s wall (first call)")
-    return out, launches
+    halo_launches = {}
+    for k in (HALO_K32, HALO_K):
+        encode.BASES_LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = make_halo_encode(mesh, k, HALO_SHARD_LEN)(seq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = halo_launches[k] = encode.BASES_LAUNCHES
+        want = make_halo_encode(make_mesh(HALO_SHARDS, device="cpu"), k, HALO_SHARD_LEN)(seq)
+        if not torch.equal(got.cpu(), want) or launches != HALO_SHARDS:
+            raise AssertionError(f"halo encoder K={k}: the card's codes differ from the "
+                                 f"CPU mesh's, or {launches} launches for {HALO_SHARDS} shards")
+        log(f"halo encoder K={k} on {dev} x{HALO_SHARDS}, {HALO_SHARD_LEN} bases a shard: "
+            f"torch.equal to [cpu] x{HALO_SHARDS}, {launches} bases-kernel launches, "
+            f"{wall:.3f} s wall (first call)")
+    return out, halo_launches
 
 
 def write_small_fasta(path, rng):
@@ -856,19 +887,25 @@ def chunk_step_times(dev, chunk, cw):
 
     db, dm = upload()
     codes = canonical_codes_packed(db, dm, span, k)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
     sorted_codes, _ = chunk_sorted_codes(db, dm, k, span)
     plane = torch.zeros(4**k // 2, dtype=torch.uint8, device=dev)
     times = {
         "chunk": "all-valid" if m is None else "masked",
         "h2d_pageable_ms": median_ms(upload, 10),
-        "encode_kernel_ms": median_ms(lambda: canonical_codes_packed(db, dm, span, k), 10),
+        "encode_kernel_fused_count_ms": median_ms(
+            lambda: canonical_codes_packed(db, dm, span, k, count=count), 10),
+        "encode_kernel_no_count_ms": median_ms(
+            lambda: canonical_codes_packed(db, dm, span, k), 10),
         "encode_plain_ms": median_ms(lambda: canonical_codes_packed_plain(db, dm, span, k), 10),
+        # the pass that counted the valid windows before the kernel did
+        "count_pass_ms": median_ms(lambda: (codes < 4**k // 2).sum(dtype=torch.int64), 10),
         "sort_ms": median_ms(lambda: sort_codes_fast(codes), 10),
         "stepA_ms": median_ms(lambda: chunk_sorted_codes(db, dm, k, span), 10),
         "stepB_sweep_ms": median_ms(lambda: sweep.accumulate_sorted(plane, sorted_codes), 10),
     }
-    log("one chunk, median device ms: " + json.dumps(times))
-    del plane, codes, sorted_codes, db, dm
+    log("one chunk, median device ms (step A with the fused count): " + json.dumps(times))
+    del plane, codes, count, sorted_codes, db, dm
     torch.cuda.empty_cache()
 
 
@@ -1818,8 +1855,12 @@ def main():
     sys.path.insert(0, ROOT)
     from pykmer_tpu_torch.ops import _build
 
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import bench_encode_variants
+
     dev = torch.device("cuda")
     t_start = t0 = time.perf_counter()
+    variants_build = bench_encode_variants.start_build()  # beside the port's build
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (set-up)\n{_build.BUILD_LOG.strip()}")
     smi = subprocess.run(
@@ -1834,7 +1875,7 @@ def main():
     os.makedirs(work)
     try:
         k15_sweep, k17_sweep = phase_kernels(dev)
-        enc_times, halo_launches = phase_encode(dev)
+        enc_times, halo_launches = phase_encode(dev, variants_build)
         phase_merge_fanin(work, dev)
         small_fa = phase_oracle(work, dev)
         (launches, enc_launches), genome, chunks, cw, total_bp, sha, choice = \
@@ -1889,13 +1930,15 @@ def main():
             "library_ms": None,
         })
     # launches: the K=15 index (phase 4), the K=17 index (phase 6), the halo
-    # encoder's run (phase 2b); times: phase 2b's masked 2^24-window chunks
+    # encoder's runs (phase 2b); times: phase 2b's masked 2^24-window chunks
     for name, n, key, replaces in (
             ("encode_packed_i32", enc_launches, ("packed", 15, "masked"),
              "pykmer_tpu/ops/encode.py:154"),
             ("encode_packed_i64", enc_launches_i64, ("packed", 17, "masked"),
              "pykmer_tpu/ops/encode.py:154"),
-            ("encode_bases", halo_launches, ("bases", HALO_K, "masked"),
+            ("encode_bases_i32", halo_launches[HALO_K32], ("bases", HALO_K32, "masked"),
+             "pykmer_tpu/ops/encode.py:69"),
+            ("encode_bases", halo_launches[HALO_K], ("bases", HALO_K, "masked"),
              "pykmer_tpu/ops/encode.py:69")):
         err, ms, plain_ms, bound_ms = enc_times[key]
         kernels.append({

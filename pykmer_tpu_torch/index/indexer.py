@@ -296,12 +296,13 @@ def chunk_sorted_codes(
 
     ``maskbits`` None marks an all-valid chunk (no Ns, separators or
     padding), which skips the mask upload. On CUDA the encode is the packed
-    kernel (``ops/encode.canonical_codes_packed``). The codes sort as
-    int32 while the folded plane has at most ``MAX_INT32_SORT_CELLS`` cells
-    (K <= 15), as int64 beyond."""
+    kernel (``ops/encode.canonical_codes_packed``), which counts the valid
+    windows as it writes their codes. The codes sort as int32 while the
+    folded plane has at most ``MAX_INT32_SORT_CELLS`` cells (K <= 15), as
+    int64 beyond."""
     fold_size = 4**kmer_len // 2
-    codes = canonical_codes_packed(bases2, maskbits, span, kmer_len)
-    nvalid = (codes < fold_size).sum(dtype=torch.int64)
+    nvalid = torch.zeros((), dtype=torch.int64, device=bases2.device)
+    codes = canonical_codes_packed(bases2, maskbits, span, kmer_len, count=nvalid)
     sort_dt = torch.int32 if fold_size <= MAX_INT32_SORT_CELLS else torch.int64
     return sort_codes_fast(codes.to(sort_dt)), nvalid
 

@@ -74,8 +74,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     signatures = {
         # (plane, n_cells, codes, m, stream)
         "pykmer_sweep_sorted": [ptr, i64, ptr, i64, ptr],
-        # (bases2, bytes, maskbits or NULL, bytes, windows, K, out, stream)
-        "pykmer_encode_packed": [ptr, i64, ptr, i64, i64, i64, ptr, ptr],
+        # (bases2, bytes, maskbits or NULL, bytes, windows, K, out,
+        #  count or NULL, stream)
+        "pykmer_encode_packed": [ptr, i64, ptr, i64, i64, i64, ptr, ptr, ptr],
         # (chunk, bases, K, out, stream)
         "pykmer_encode_bases": [ptr, i64, i64, ptr, ptr],
     }

@@ -11,8 +11,10 @@ every window encoded in registers from bytes staged in shared memory, the
 codes written once) and a plain torch version in this module:
 
 - :func:`canonical_codes_packed`: folded codes straight from the packed
-  upload planes (the main path's step A, every chunk, masked or all-valid);
-  its plain version unpacks the planes, sums K shifted slices and folds;
+  upload planes (the main path's step A, every chunk, masked or all-valid),
+  optionally adding the number of valid windows to a counter as it writes
+  them; its plain version unpacks the planes, sums K shifted slices and
+  folds;
 - :func:`canonical_codes`: unfolded codes of a uint8 base-code chunk (the
   halo encoder's); its plain version sums K shifted slices.
 
@@ -78,6 +80,7 @@ def canonical_codes_packed(
     maskbits: Optional[torch.Tensor],
     span: int,
     kmer_len: int,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Folded canonical codes of the ``span - K + 1`` windows of a packed
     chunk (``host.chunks.pack_base_stream``'s layout: base ``4j+i`` is bits
@@ -87,6 +90,10 @@ def canonical_codes_packed(
     returns: codes in ``code_dtype``, ``min(c, 4^K - 1 - c)`` of each
     window's canonical code c, the folded sentinel ``4^K / 2`` where any of
     the window's K validity bits is 0.
+
+    count: None, or a 0-d int64 tensor on the planes' device that gains the
+    number of valid windows (codes below ``4^K / 2``) in place; the kernel
+    counts them as it writes the codes.
     """
     global LAUNCHES, LAUNCHES_I64
     m = _windows(span, kmer_len)
@@ -99,8 +106,15 @@ def canonical_codes_packed(
             raise ValueError(f"bases2 on {bases2.device}, maskbits on {maskbits.device}")
         if maskbits.shape[0] * 8 < span:
             raise ValueError(f"maskbits holds {maskbits.shape[0] * 8} bits, span is {span}")
+    if count is not None and (count.dtype != torch.int64 or count.dim() != 0
+                              or count.device != bases2.device):
+        raise ValueError(f"count must be a 0-d int64 tensor on {bases2.device}, got "
+                         f"{count.dtype} {tuple(count.shape)} on {count.device}")
     if bases2.device.type == "cpu":
-        return canonical_codes_packed_plain(bases2, maskbits, span, kmer_len)
+        codes = canonical_codes_packed_plain(bases2, maskbits, span, kmer_len)
+        if count is not None:
+            count += (codes < 4**kmer_len // 2).sum(dtype=torch.int64)
+        return codes
     from ._build import load
 
     lib = load()
@@ -111,7 +125,7 @@ def canonical_codes_packed(
         err = fn(bases2.data_ptr(), bases2.shape[0],
                  None if maskbits is None else maskbits.data_ptr(),
                  0 if maskbits is None else maskbits.shape[0],
-                 m, kmer_len, out.data_ptr(),
+                 m, kmer_len, out.data_ptr(), None if count is None else count.data_ptr(),
                  torch.cuda.current_stream(bases2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"encode (packed) kernel launch failed: cudaError_t {err}")

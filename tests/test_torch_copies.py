@@ -3,8 +3,9 @@ package's JAX-free modules (``config``, ``utils``, ``formats``, ``io`` with
 the C++ ``native`` library, ``analysis``, ``oracle``, ``testgen``) are held
 here against their originals.
 
-- an AST scan of every module of ``pykmer_tpu_torch``, of ``chip_smoke.py``
-  and of ``ab_index.py``: no import of ``pykmer_tpu``, ``pykmer_tpu.*``,
+- an AST scan of every module of ``pykmer_tpu_torch``, of ``chip_smoke.py``,
+  of ``ab_index.py`` and of ``scripts/bench_encode_variants.py`` (which the
+  smoke imports): no import of ``pykmer_tpu``, ``pykmer_tpu.*``,
   ``scripts.*`` or jax;
 - each copy's code is its original's (docstrings aside), but for the native
   library's build, the profiling hooks and the merged ``config``; the C++
@@ -83,7 +84,7 @@ def _read(path):
 
 
 def _port_sources():
-    out = ["chip_smoke.py", "ab_index.py"]
+    out = ["chip_smoke.py", "ab_index.py", "scripts/bench_encode_variants.py"]
     for root, _, files in os.walk(PORT_PKG):
         out += [os.path.relpath(os.path.join(root, f), REPO) for f in files
                 if f.endswith(".py")]

@@ -176,21 +176,28 @@ def _packed_planes(rng, span, masked):
 
 
 def _packed_vs_plain(db, dm, span, kmer_len):
+    """The packed kernel against its plain version, and its fused count
+    (started at 7) against the plain count of valid windows."""
     before = (encode.LAUNCHES, encode.LAUNCHES_I64)
-    got = encode.canonical_codes_packed(db, dm, span, kmer_len)
+    count = torch.full((), 7, dtype=torch.int64, device=db.device)
+    got = encode.canonical_codes_packed(db, dm, span, kmer_len, count=count)
     torch.cuda.synchronize()
     assert (encode.LAUNCHES, encode.LAUNCHES_I64) == (before[0] + 1,
                                                       before[1] + (kmer_len > 15))
     want = encode.canonical_codes_packed_plain(db, dm, span, kmer_len)
     assert got.dtype == encode.code_dtype(kmer_len) == want.dtype
     assert torch.equal(got, want)
+    assert int(count) == 7 + int((want < 4**kmer_len // 2).sum())
+    assert torch.equal(encode.canonical_codes_packed(db, dm, span, kmer_len), want)
     return got
 
 
 @pytest.mark.parametrize("kmer_len", ENCODE_K)
 @pytest.mark.parametrize("masked", [True, False])
-# windows beyond K: one window, two, a block and one, many blocks and a ragged end
-@pytest.mark.parametrize("extra", [0, 1, ENCODE_BLOCK, 37 * ENCODE_BLOCK + 5])
+# windows beyond K: one window, two, three, 18 (a multiple of neither 4 nor
+# 16), a block and one, a block and 7, many blocks and a ragged end
+@pytest.mark.parametrize("extra", [0, 1, 2, 17, ENCODE_BLOCK, ENCODE_BLOCK + 6,
+                                   37 * ENCODE_BLOCK + 5])
 def test_encode_kernel_packed_matches_plain(cuda, kmer_len, masked, extra):
     span = kmer_len + extra
     b, m = _packed_planes(np.random.default_rng(kmer_len * 1000 + extra), span, masked)
@@ -216,24 +223,88 @@ def test_encode_kernel_packed_unaligned_views(cuda, kmer_len):
                      span, kmer_len)
 
 
-@pytest.mark.parametrize("kmer_len", ENCODE_K)
-@pytest.mark.parametrize("extra", [0, 1, 41 * ENCODE_BLOCK + 3])
-def test_encode_kernel_bases_matches_plain(cuda, kmer_len, extra):
-    """The bases entry (unfolded codes, sentinel 4^K) with invalid bases of
-    the codes 4, 5 and 255."""
-    rng = np.random.default_rng(kmer_len + extra)
-    n = kmer_len + extra
-    chunk = rng.integers(0, 4, size=n).astype(np.uint8)
-    chunk[rng.random(n) < 0.02] = 4
-    chunk[rng.integers(0, n, size=3)] = 5
-    chunk[rng.integers(0, n, size=3)] = 255
-    dc = torch.from_numpy(chunk).to(cuda)
+@pytest.mark.parametrize("kmer_len", [15, 31])
+@pytest.mark.parametrize("offset", range(16))
+def test_encode_kernel_packed_views_at_every_offset(cuda, kmer_len, offset):
+    """Planes at every byte offset 0..15 of larger buffers (the kernel
+    stages 16-byte vectors from an aligned plane, bytes otherwise), the
+    mask at another offset, and a span that ends inside a block."""
+    span = 3 * ENCODE_BLOCK + kmer_len + 21
+    b, m = _packed_planes(np.random.default_rng(offset), span, True)
+    big_b = torch.zeros(b.shape[0] + 48, dtype=torch.uint8, device=cuda)
+    big_m = torch.zeros(m.shape[0] + 48, dtype=torch.uint8, device=cuda)
+    moff = (offset * 7) % 16
+    big_b[offset : offset + b.shape[0]] = torch.from_numpy(b).to(cuda)
+    big_m[moff : moff + m.shape[0]] = torch.from_numpy(m).to(cuda)
+    view_b, view_m = big_b[offset : offset + b.shape[0]], big_m[moff : moff + m.shape[0]]
+    assert view_b.data_ptr() % 16 == offset
+    _packed_vs_plain(view_b, view_m, span, kmer_len)
+    _packed_vs_plain(view_b, None, span, kmer_len)
+
+
+@pytest.mark.parametrize("kmer_len", [1, 15, 17, 31])
+def test_encode_kernel_packed_all_invalid(cuda, kmer_len):
+    """A chunk with no valid base: every code the folded sentinel, a count
+    of 0."""
+    span = ENCODE_BLOCK + kmer_len + 10
+    rng = np.random.default_rng(kmer_len)
+    db = torch.from_numpy(rng.integers(0, 256, size=(span + 3) // 4).astype(np.uint8)).to(cuda)
+    dm = torch.zeros((span + 7) // 8, dtype=torch.uint8, device=cuda)
+    count = torch.zeros((), dtype=torch.int64, device=cuda)
+    got = encode.canonical_codes_packed(db, dm, span, kmer_len, count=count)
+    torch.cuda.synchronize()
+    assert int(count) == 0 and bool((got == 4**kmer_len // 2).all())
+    assert torch.equal(got, encode.canonical_codes_packed_plain(db, dm, span, kmer_len))
+
+
+def test_encode_kernel_packed_rejects_a_counter_elsewhere(cuda):
+    db = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    for count in (torch.zeros((), dtype=torch.int64),
+                  torch.zeros((), dtype=torch.int32, device=cuda),
+                  torch.zeros(1, dtype=torch.int64, device=cuda)):
+        with pytest.raises(ValueError, match="count must be"):
+            encode.canonical_codes_packed(db, None, 200, 15, count=count)
+
+
+def _bases_vs_plain(dc, kmer_len):
     before = encode.BASES_LAUNCHES
     got = encode.canonical_codes(dc, kmer_len)
     torch.cuda.synchronize()
     assert encode.BASES_LAUNCHES == before + 1
     want = encode.canonical_codes_plain(dc, kmer_len)
     assert got.dtype == encode.code_dtype(kmer_len) and torch.equal(got, want)
+
+
+def _base_chunk(rng, n):
+    chunk = rng.integers(0, 4, size=n).astype(np.uint8)
+    chunk[rng.random(n) < 0.02] = 4
+    chunk[rng.integers(0, n, size=3)] = 5
+    chunk[rng.integers(0, n, size=3)] = 255
+    return chunk
+
+
+@pytest.mark.parametrize("kmer_len", ENCODE_K)
+@pytest.mark.parametrize("extra", [0, 1, 2, 17, ENCODE_BLOCK, ENCODE_BLOCK + 6,
+                                   41 * ENCODE_BLOCK + 3])
+def test_encode_kernel_bases_matches_plain(cuda, kmer_len, extra):
+    """The bases entry (unfolded codes, sentinel 4^K) with invalid bases of
+    the codes 4, 5 and 255."""
+    rng = np.random.default_rng(kmer_len + extra)
+    _bases_vs_plain(torch.from_numpy(_base_chunk(rng, kmer_len + extra)).to(cuda), kmer_len)
+
+
+@pytest.mark.parametrize("kmer_len", [15, 31])
+@pytest.mark.parametrize("offset", range(16))
+def test_encode_kernel_bases_views_at_every_offset(cuda, kmer_len, offset):
+    """A chunk at every byte offset 0..15 of a larger buffer (16-byte
+    vector loads where aligned, byte loads otherwise and at the end)."""
+    n = 2 * ENCODE_BLOCK + kmer_len + 37
+    chunk = torch.from_numpy(_base_chunk(np.random.default_rng(offset), n)).to(cuda)
+    big = torch.full((n + 40,), 9, dtype=torch.uint8, device=cuda)
+    big[offset : offset + n] = chunk
+    view = big[offset : offset + n]
+    assert view.data_ptr() % 16 == offset
+    _bases_vs_plain(view, kmer_len)
 
 
 @pytest.mark.parametrize("n_data,n_shards", [(1, 8), (2, 2)])

@@ -89,25 +89,30 @@ def test_slice_encoder_matches_jax_packed(kmer_len):
 def test_chunk_sorted_codes_matches_jax_step_a(kmer_len, packed_encode):
     """The port's step A (encode, fold, sort, valid-window count) against
     the JAX package's program A with either of its encoders, on masked and
-    all-valid chunks."""
+    all-valid chunks; and the packed encoder's counter, accumulated over
+    every chunk, against program A's nvalid carried from chunk to chunk."""
     from pykmer_tpu.index.indexer import _make_chunk_sorted_codes_cached
     from pykmer_tpu_torch.host.chunks import mask_all_valid
     from pykmer_tpu_torch.index.indexer import chunk_sorted_codes
 
     chunks, span = _packed_chunks(kmer_len)
     seen = set()
+    j_total = 0  # program A donates its running count: carry it as an int
+    count = torch.zeros((), dtype=torch.int64)
     for b, m in chunks:
         masked = not mask_all_valid(m, span)
         seen.add(masked)
         step = _make_chunk_sorted_codes_cached(kmer_len, span, masked, packed_encode)
-        nk0 = jnp.zeros((), dtype=jnp.int64)
         args = (jnp.asarray(b), jnp.asarray(m)) if masked else (jnp.asarray(b),)
-        j_sorted, j_nk = step(nk0, *args)
-        t_sorted, t_nvalid = chunk_sorted_codes(
-            torch.from_numpy(b), torch.from_numpy(m) if masked else None, kmer_len, span)
+        j_sorted, j_nk = step(jnp.asarray(j_total, dtype=jnp.int64), *args)
+        tm = torch.from_numpy(m) if masked else None
+        t_sorted, t_nvalid = chunk_sorted_codes(torch.from_numpy(b), tm, kmer_len, span)
         _same(t_sorted, j_sorted)
-        assert int(t_nvalid) == int(j_nk)
+        assert int(t_nvalid) == int(j_nk) - j_total
+        j_total = int(j_nk)
+        tenc.canonical_codes_packed(torch.from_numpy(b), tm, span, kmer_len, count=count)
     assert seen == {True, False}
+    assert count.dtype == torch.int64 and int(count) == j_total > 0
 
 
 # ---- canonical_codes_packed: the CUDA kernel's entry, plain on the CPU ------
@@ -120,8 +125,11 @@ def test_packed_encoder_matches_jax_packed(kmer_len):
     chunks, span = _packed_chunks(kmer_len)
     for b, m in chunks:
         tb, jb = torch.from_numpy(b), jnp.asarray(b)
-        _same(tenc.canonical_codes_packed(tb, torch.from_numpy(m), span, kmer_len),
-              jenc.canonical_codes_packed(jb, jnp.asarray(m), span, kmer_len))
+        want = jenc.canonical_codes_packed(jb, jnp.asarray(m), span, kmer_len)
+        count = torch.full((), 3, dtype=torch.int64)
+        _same(tenc.canonical_codes_packed(tb, torch.from_numpy(m), span, kmer_len, count),
+              want)
+        assert int(count) == 3 + int((np.asarray(want) < 4**kmer_len // 2).sum())
         _same(tenc.canonical_codes_packed(tb, None, span, kmer_len),
               jenc.canonical_codes_packed(jb, None, span, kmer_len))
 
@@ -153,6 +161,16 @@ def test_bases_encoder_matches_jax(kmer_len):
     chunk[rng.integers(0, 900, size=3)] = 255
     _same(tenc.canonical_codes(torch.from_numpy(chunk), kmer_len),
           jenc.canonical_codes(jnp.asarray(chunk), kmer_len))
+
+
+@pytest.mark.parametrize("count", [
+    torch.zeros((), dtype=torch.int32),  # not int64
+    torch.zeros(1, dtype=torch.int64),  # not 0-d
+    torch.zeros((), dtype=torch.int64, device="meta"),  # not the planes' device
+])
+def test_packed_encoder_rejects_a_wrong_counter(count):
+    with pytest.raises(ValueError, match="count must be a 0-d int64 tensor on cpu"):
+        tenc.canonical_codes_packed(torch.zeros(8, dtype=torch.uint8), None, 20, 5, count)
 
 
 def test_packed_encoder_rejects_what_the_kernel_cannot_take():
