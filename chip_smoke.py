@@ -34,6 +34,11 @@ Phases — each one passes or raises, and any failure exits non-zero:
    ``cuobjdump`` is present; then the halo encoder at K=15 and K=19 on
    ``[cuda:0] * 8`` against ``[cpu] * 8``, one bases-kernel launch per
    shard;
+2c. part D of ``scripts/certify_k19_torch.py``: the K=19 fixture's sorted
+   folded int64 codes swept into a 2^22-cell window plane at bases across
+   the 2^37-cell range (one above 2^32), one int64 kernel launch a window,
+   every touched cell the numpy oracle's count, no other cell nonzero, one
+   cell saturated;
 3. oracle: a small FASTA (Ns, several records, an empty one) indexed at K=11
    through ``python -m pykmer_tpu_torch index`` gives the `.kin` and stats of
    the port's copy of the numpy oracle (``pykmer_tpu_torch.oracle``);
@@ -54,12 +59,18 @@ Phases — each one passes or raises, and any failure exits non-zero:
    each `.kin` sha256 phase 4's, each stage table logged, and whether the
    sparse run's segments overflowed the token caps and took the 2-bit
    fallback;
-5. where the time goes: one chunk's steps timed with CUDA events (the
-   encode kernel with its fused count, the plain encode, and the count pass
-   that step A no longer runs, apart), then a
+5. where the time goes: one chunk's steps timed with CUDA events
+   (``scripts/bench_device_step_torch.step_times``: the uploads, the encode
+   kernel with its fused count and the plain encode, the sort, step A, the
+   sweep, A+B, beside the kernels' bounds), then a
    second index run of the genome under ``torch.profiler``, whose device
    activity (kernels and copies, overlaps merged) gives the busy and idle
    shares of its wall time;
+5b. ``bench_gpu.py`` in a subprocess at a reduced schedule on the genome
+   (K=15, one run a leg, no spaced runs, the K=17 leg off; the merge pair,
+   the device step and the fan-in over phase 7's samples): it exits 0, every
+   `.kin` sha256 of its runs is phase 4's, and its launch counts show the
+   sweep and the encode kernel ran;
 6. K=17 (an 8 GiB folded plane on the card, int64 codes): phase 3's small
    FASTA through the CLI, every nonzero cell of its 16 GiB `.kin` equal to
    the sparse numpy oracle's counts and no other cell nonzero; then the
@@ -78,10 +89,10 @@ Phases — each one passes or raises, and any failure exits non-zero:
    logged, the pieces run's peak device memory at most the raw run's plus
    1 GiB;
 7. merge fan-in at the reference's workload shape: 39 synthetic K=13
-   samples, 8 of them `.kin.bgz` (``fabricate_kin``: the recipe of
-   ``scripts/bench_merge_fanin.py`` on the port's ``formats``, seeds
-   1000+i), merged through the CLI entry with the device engine on the card
-   and with the host engine: equal `.kma` matrices, three pairs equal to
+   samples, 8 of them `.kin.bgz` (``scripts/bench_merge_fanin_torch``'s
+   ``ensure_fanin_inputs``: the recipe of ``scripts/bench_merge_fanin.py``
+   on the port's ``formats``, seeds 1000+i), merged through the CLI entry
+   with the device engine on the card and with the host engine: equal `.kma` matrices, three pairs equal to
    ``pair_counts_stream``, the device block steps one per block; the device
    step's time per block (CUDA events) with its unpack and product apart,
    and the host-vs-device crossover in N;
@@ -127,9 +138,9 @@ Phases — each one passes or raises, and any failure exits non-zero:
    kernels' four), then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phase 2b runs after phase 2, phases 7-9 between phases 2b and 3 (7, with 10c) and after phase 5 (8,
-9); 10a and 10d run after phase 9, 10b after phase 6b, 11 after 10b. The
-script exits non-zero, printing no result, where CUDA is unavailable or
+Phase 2b runs after phase 2, then 2c; phases 7-9 between phases 2c and 3
+(7, with 10c) and after phase 5b (8, 9); 10a and 10d run after phase 9, 10b
+after phase 6b, 11 after 10b. The script exits non-zero, printing no result, where CUDA is unavailable or
 outside a checkout of the repository. It never imports jax. Scratch files go
 under ``build/smoke`` (git-ignored) and are removed at the end. It needs
 about 35 GiB of free disk there (two 1 GiB K=15 files, one 16 GiB K=17 file
@@ -142,7 +153,6 @@ import io
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -159,7 +169,6 @@ BIG_K = 17
 ORACLE_K = 11
 H100_SXM_BYTES_PER_S = 3.35e12  # published HBM3 bandwidth of the H100 SXM
 PROFILE_TOP = 8  # device items listed by the profiled run
-SPIN_CYCLES = 2_000_000  # ~1 ms of card clock queued ahead of each timing
 FANIN_N, FANIN_K, FANIN_BGZ = 39, 13, 8  # the reference's 39-genome merge
 FANIN_PAIRS = ((0, 1), (7, 8), (20, 38))  # bgz-bgz, bgz-raw, raw-raw
 CROSSOVER_N = (2, 4, 8, 16, 31)  # merge sizes timed with both engines
@@ -175,6 +184,7 @@ ENCODE_WINDOWS = 1 << 24  # windows per chunk on CUDA at every K
 HALO_K, HALO_SHARDS, HALO_SHARD_LEN = 19, 8, 1 << 20  # the halo encoder's run
 HALO_K32 = 15  # the halo encoder's int32 run (the bases entry's 32-bit path)
 MH_TIMEOUT_S = 400  # a multi-host run's limit: its workers are killed after it
+BENCH_TIMEOUT_S = 300  # phase 5b's limit on bench_gpu.py
 
 
 def log(msg):
@@ -182,25 +192,16 @@ def log(msg):
 
 
 def median_ms(fn, reps):
-    """Median device time of ``fn`` (CUDA events), after one warm-up call.
-    A ~1 ms spin on the card is queued before each start event, so the card
-    is still busy while the host enqueues ``fn``'s launches: a short
-    kernel's time is its own, not its wrapper's enqueue."""
+    """Median device time of ``fn`` on the card, after one warm-up call
+    (``scripts/bench_device_step_torch.median_ms``: CUDA events, a ~1 ms
+    spin queued before each start event, so the card is still busy while the
+    host enqueues ``fn``'s launches and a short kernel's time is its own, not
+    its wrapper's enqueue)."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+    from bench_device_step_torch import median_ms as device_median_ms
+
+    return device_median_ms(fn, torch.device("cuda"), reps)
 
 
 def max_abs_err(a, b):
@@ -234,24 +235,6 @@ def sorted_batch(rng, cells, m, hot_cells, dtype):
     return np.sort(codes).astype(dtype)
 
 
-def sweep_bound_ms(batches, cells):
-    """The least time the card could take to apply these sorted batches to a
-    plane of ``cells`` cells: every code read once, plus one 32-byte sector
-    read and one written back for each distinct sector of the plane that the
-    in-range codes touch (``unique_consecutive(codes >> 5)``, over the union
-    of the batches), at the published HBM3 bandwidth. Returns (ms, distinct
-    sectors, bytes)."""
-    import torch
-
-    code_bytes = sum(c.numel() * c.element_size() for c in batches)
-    sectors = torch.cat([c[(c >= 0) & (c < cells)].to(torch.int64) >> 5 for c in batches])
-    if len(batches) > 1:
-        sectors = torch.sort(sectors).values
-    n_sectors = int(torch.unique_consecutive(sectors).numel())
-    moved = code_bytes + n_sectors * 2 * 32
-    return moved / H100_SXM_BYTES_PER_S * 1e3, n_sectors, moved
-
-
 def kernel_vs_plain(dev, cells, codes, hot, label):
     """The kernel and the plain sweep on two copies of one random plane;
     returns (max abs err, min kernel ms, min plain ms, bound ms), each time
@@ -259,6 +242,7 @@ def kernel_vs_plain(dev, cells, codes, hot, label):
     plain."""
     import torch
 
+    from bench_device_step_torch import sweep_bound_ms
     from pykmer_tpu_torch.ops import sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
 
@@ -867,48 +851,6 @@ def phase_k15_variants(work, dev, genome, total_bp, want_sha, cw):
     return gz
 
 
-def chunk_step_times(dev, chunk, cw):
-    """Median device ms (CUDA events) of each step of one chunk, the encode
-    kernel and the plain encode apart."""
-    import torch
-
-    from pykmer_tpu_torch.index.indexer import chunk_sorted_codes
-    from pykmer_tpu_torch.ops import sweep
-    from pykmer_tpu_torch.ops.encode import canonical_codes_packed, canonical_codes_packed_plain
-    from pykmer_tpu_torch.ops.histogram import sort_codes_fast
-
-    k = SLICE_K
-    span = cw + k - 1
-    b, m = chunk
-
-    def upload():
-        return (torch.from_numpy(b).to(dev),
-                None if m is None else torch.from_numpy(m).to(dev))
-
-    db, dm = upload()
-    codes = canonical_codes_packed(db, dm, span, k)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    sorted_codes, _ = chunk_sorted_codes(db, dm, k, span)
-    plane = torch.zeros(4**k // 2, dtype=torch.uint8, device=dev)
-    times = {
-        "chunk": "all-valid" if m is None else "masked",
-        "h2d_pageable_ms": median_ms(upload, 10),
-        "encode_kernel_fused_count_ms": median_ms(
-            lambda: canonical_codes_packed(db, dm, span, k, count=count), 10),
-        "encode_kernel_no_count_ms": median_ms(
-            lambda: canonical_codes_packed(db, dm, span, k), 10),
-        "encode_plain_ms": median_ms(lambda: canonical_codes_packed_plain(db, dm, span, k), 10),
-        # the pass that counted the valid windows before the kernel did
-        "count_pass_ms": median_ms(lambda: (codes < 4**k // 2).sum(dtype=torch.int64), 10),
-        "sort_ms": median_ms(lambda: sort_codes_fast(codes), 10),
-        "stepA_ms": median_ms(lambda: chunk_sorted_codes(db, dm, k, span), 10),
-        "stepB_sweep_ms": median_ms(lambda: sweep.accumulate_sorted(plane, sorted_codes), 10),
-    }
-    log("one chunk, median device ms (step A with the fused count): " + json.dumps(times))
-    del plane, codes, count, sorted_codes, db, dm
-    torch.cuda.empty_cache()
-
-
 def phase_k17_oracle(work, dev, fa):
     """Phase 3's small FASTA at K=17 through the CLI: the `.kin`'s nonzero
     cells are exactly the numpy oracle's canonical codes, clipped counts."""
@@ -1107,59 +1049,19 @@ def merge_step_times(dev, n, k):
     return times["step_ms"]
 
 
-def fabricate_kin(path_stem, kmer_len, seed, bgz=False):
-    """Write a synthetic {stem}.fa.{K:02d}.kin(.bgz) + .kin.json with a
-    plausible coverage distribution (Poisson-ish + saturated tail): the
-    recipe of ``scripts/bench_merge_fanin.fabricate_kin``, written on the
-    port's ``formats`` and ``io``."""
-    import numpy as np
-
-    from pykmer_tpu_torch.formats.header import KinHeader, fast_counts256
-    from pykmer_tpu_torch.io.bgzf import compress_file
-
-    data_size = 4**kmer_len
-    rng = np.random.default_rng(seed)
-    # ~half the cells empty, heavy tail, some saturation
-    plane = rng.poisson(1.2, size=data_size).astype(np.uint16)
-    hot = rng.integers(0, data_size, size=data_size // 1000)
-    plane[hot] += rng.integers(200, 400, size=hot.shape[0]).astype(np.uint16)
-    plane = np.minimum(plane, 255).astype(np.uint8)
-
-    fake_input = f"{path_stem}.fa"
-    with open(fake_input, "w") as fh:
-        fh.write(">synthetic\nACGT\n")
-    kin = f"{fake_input}.{kmer_len:02d}.kin"
-    with open(kin, "wb") as fh:
-        fh.write(plane.tobytes())
-    h = KinHeader(fake_input, input_file=fake_input, kmer_len=kmer_len)
-    h.num_kmers = int(plane.astype(np.int64).sum())
-    h.chromosomes = [("synthetic", 4)]
-    h.write_metadata(kin, stats_counts256=fast_counts256(plane))
-    if bgz:
-        compress_file(kin)
-        os.remove(kin)
-        return f"{kin}.bgz"
-    return kin
-
-
 def phase_merge_fanin(work, dev):
     """N=39 at K=13 (8 .bgz): device vs host engine through the CLI entry,
     three pairs vs pair_counts_stream, the device step's time, and the
     host-vs-device crossover in N."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    from bench_merge_fanin_torch import ensure_fanin_inputs
     from pykmer_tpu_torch.merge import merge
 
-    k, d = FANIN_K, os.path.join(work, "fanin")
-    os.makedirs(d)
+    # where bench_gpu.py's fan-in leg looks for its samples (phase 5b)
+    k, d = FANIN_K, os.path.join(work, "bench", "merge_fanin")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
-        kins = list(pool.map(
-            lambda i: fabricate_kin(os.path.join(d, f"s{i:02d}"), k, seed=1000 + i,
-                                    bgz=i < FANIN_BGZ), range(FANIN_N)))
+    kins = sorted(ensure_fanin_inputs(d, FANIN_N, k, FANIN_BGZ))
     log(f"fan-in: {FANIN_N} K={k} samples ({FANIN_BGZ} .kin.bgz) fabricated in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
-    kins = sorted(kins)
     matrix, walls = merge_both(work, "fanin", kins, dev, k)
     check_pairs(matrix, kins, FANIN_PAIRS, k)
     phase_merge_sharded(work, dev, kins, k, matrix)
@@ -1170,17 +1072,18 @@ def phase_merge_fanin(work, dev):
         f"{streamed / walls['device'] / 1e6:.0f} MB/s streamed by the device engine")
     step_ms = merge_step_times(dev, FANIN_N, k)
 
-    raw = kins[FANIN_BGZ:]
+    raw, x = kins[FANIN_BGZ:], os.path.join(work, "crossover")
+    os.makedirs(x)
     for nn in CROSSOVER_N:
         sub, got = raw[:nn], {"host": [], "device": []}
         for i, engine in enumerate(("host", "device", "device", "host")):
             t0 = time.perf_counter()
-            merge(os.path.join(d, f"x{nn}_{i}"), sub, engine=engine, verbose=False,
+            merge(os.path.join(x, f"x{nn}_{i}"), sub, engine=engine, verbose=False,
                   device=dev)
             got[engine].append(round(time.perf_counter() - t0, 3))
         log(f"merge crossover N={nn} K={k} raw .kin: host {got['host']} s, "
             f"device {got['device']} s")
-    shutil.rmtree(d)
+    shutil.rmtree(x)
     return step_ms
 
 
@@ -1233,6 +1136,54 @@ def perturb(kin, out, dev):
     t16.to(torch.uint8).cpu().numpy().tofile(out)
     del t, t16
     torch.cuda.empty_cache()
+
+
+def phase_certify_k19(dev):
+    """Phase 2c: part D of ``scripts/certify_k19_torch.py`` on the card: the
+    K=19 fixture's sorted folded codes swept into a 2^22-cell window at bases
+    across the 2^37-cell range (one above 2^32), one int64 kernel launch a
+    window, each window equal to the numpy oracle's counts, one saturated."""
+    import numpy as np
+
+    import certify_k19_torch as cert
+
+    t0 = time.perf_counter()
+    cert.certify(dev, cert.build_fixture(np.random.default_rng(cert.FIXTURE_SEED)), parts="D")
+    log(f"K=19 certification, part D: passed in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_bench(work, genome, want_sha):
+    """Phase 5b: ``bench_gpu.py`` in a subprocess at a reduced schedule on
+    the genome (K=15, one run a leg, no spaced runs, no K=17 leg; the merge
+    pair, the device step and phase 7's fan-in samples): it must exit 0, its
+    every `.kin` sha256 must be phase 4's, and its index must have launched
+    the sweep and the encode kernel."""
+    import torch
+
+    torch.cuda.empty_cache()  # the subprocess needs the card's memory
+    d = os.path.join(work, "bench")
+    os.makedirs(d, exist_ok=True)
+    os.symlink(genome, os.path.join(d, f"synthetic_repeat_{GENOME_BP}.fa"))
+    env = dict(os.environ, BENCH_K=str(SLICE_K), BENCH_BP=str(GENOME_BP),
+               BENCH_GENOME="repeat", BENCH_RUNS="1", BENCH_SPACED="0", BENCH_LEG_RUNS="1",
+               BENCH_K17="0", BENCH_MERGE="1", BENCH_FANIN="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_gpu.py"), "--bench-dir", d],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    res = json.loads(lines[-1]) if lines else {}
+    log(f"bench_gpu.py (reduced schedule) exited {proc.returncode} in {wall:.1f} s: "
+        + json.dumps(res))
+    sums = res.get("output_checksums", [])
+    launches = res.get("launches", {})
+    if proc.returncode != 0 or any(key.endswith("_error") for key in res) or not sums \
+            or any(x != want_sha for x in sums) \
+            or not (launches.get("sweep") and launches.get("encode_packed")):
+        raise AssertionError(f"bench_gpu.py: exit {proc.returncode}, checksums {sums} (phase "
+                             f"4's {want_sha}), launches {launches}\n{proc.stderr[-4000:]}")
+    shutil.rmtree(d)
 
 
 def phase_merge_pair(work, dev, genome):
@@ -1442,6 +1393,7 @@ def sharded_step_times(dev, mesh_shape, rows_np):
     one launch (the three planes checked equal)."""
     import torch
 
+    from bench_device_step_torch import sweep_bound_ms
     from pykmer_tpu_torch.ops import sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted, sort_codes_fast
     from pykmer_tpu_torch.parallel import histogram, make_mesh
@@ -1716,6 +1668,7 @@ def mh_rows_times(dev, genome, k, cw):
     bound ms)."""
     import torch
 
+    from bench_device_step_torch import sweep_bound_ms
     from pykmer_tpu_torch.ops import sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
     from pykmer_tpu_torch.parallel import histogram, make_mesh
@@ -1857,6 +1810,7 @@ def main():
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import bench_encode_variants
+    from bench_device_step_torch import format_table, step_times
 
     dev = torch.device("cuda")
     t_start = t0 = time.perf_counter()
@@ -1876,15 +1830,17 @@ def main():
     try:
         k15_sweep, k17_sweep = phase_kernels(dev)
         enc_times, halo_launches = phase_encode(dev, variants_build)
+        phase_certify_k19(dev)
         phase_merge_fanin(work, dev)
         small_fa = phase_oracle(work, dev)
         (launches, enc_launches), genome, chunks, cw, total_bp, sha, choice = \
             phase_slice(work, dev)
         gz = phase_k15_variants(work, dev, genome, total_bp, sha, cw)
         phase_k15_modes(dev, genome, total_bp, sha, choice)
-        chunk_step_times(dev, chunks[len(chunks) // 2], cw)
+        log(format_table(step_times(dev, chunks[len(chunks) // 2], SLICE_K, cw)))
         del chunks
         profiled_run(dev, genome, total_bp)
+        phase_bench(work, genome, sha)
         num_kmers = json.load(open(genome + f".{SLICE_K:02d}.kin.json"))["num_kmers"]
         phase_merge_pair(work, dev, genome)  # removes the K=15 .kin
         phase_serve(work, dev, genome, gz, sha, num_kmers)

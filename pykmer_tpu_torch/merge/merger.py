@@ -130,12 +130,8 @@ def merge(
     n = len(data)
     data_size = 4**kmer_len
 
-    if engine not in ("auto", "host", "device"):
-        raise ValueError(f"engine must be auto|host|device, got {engine!r}")
     sharded = (n_shards or 0) > 1
-    if engine == "auto":
-        host_max_n = int(os.environ.get("PYKMER_TPU_MERGE_HOST_MAX_N", "8"))
-        engine = "host" if n <= host_max_n and not sharded else "device"
+    engine = resolve_engine(engine, n, sharded)
     if engine == "host" and sharded:
         raise ValueError("--shards requires the device engine")
 
@@ -178,6 +174,18 @@ def merge(
         print(f"saving {outfile}")
     kmafmt.write_kma(outfile, matrix)
     return json_data, matrix
+
+
+def resolve_engine(engine: str, n: int, sharded: bool) -> str:
+    """The engine ``merge(engine=...)`` runs for ``n`` indexes: "auto" is
+    the host engine when n <= PYKMER_TPU_MERGE_HOST_MAX_N (default 8) and the
+    merge is not sharded, the device engine otherwise."""
+    if engine not in ("auto", "host", "device"):
+        raise ValueError(f"engine must be auto|host|device, got {engine!r}")
+    if engine == "auto":
+        host_max_n = int(os.environ.get("PYKMER_TPU_MERGE_HOST_MAX_N", "8"))
+        return "host" if n <= host_max_n and not sharded else "device"
+    return engine
 
 
 class _InputStreams:

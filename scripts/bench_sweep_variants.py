@@ -12,7 +12,7 @@ and two diagnostics) with nvcc for sm_90a, then at the two shapes of
 checks every sweep variant byte for byte against the plain torch sweep and
 times it: the median of 20 launches (CUDA events), in two rounds, the
 second in the reverse order. Each time is printed beside the sector-counted bound of
-``chip_smoke.sweep_bound_ms`` and its share of it. The last line is a JSON
+``scripts/bench_device_step_torch.sweep_bound_ms`` and its share of it. The last line is a JSON
 object of every time. The card's name and power limit come first.
 """
 
@@ -73,6 +73,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from bench_device_step_torch import sweep_bound_ms
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,7 +96,7 @@ def main():
     for label, cells, hot, codes_np in shapes:
         codes = torch.from_numpy(codes_np).to(dev)
         suffix = "_i32" if codes.dtype == torch.int32 else "_i64"
-        bound, sectors, moved = cs.sweep_bound_ms([codes], cells)
+        bound, sectors, moved = sweep_bound_ms([codes], cells)
         g = torch.Generator(device=dev).manual_seed(cs.SEED)
         base = torch.randint(0, 256, (cells,), dtype=torch.uint8, device=dev, generator=g)
         want = base.clone()

@@ -4,8 +4,10 @@ the C++ ``native`` library, ``analysis``, ``oracle``, ``testgen``) are held
 here against their originals.
 
 - an AST scan of every module of ``pykmer_tpu_torch``, of ``chip_smoke.py``,
-  of ``ab_index.py`` and of ``scripts/bench_encode_variants.py`` (which the
-  smoke imports): no import of ``pykmer_tpu``, ``pykmer_tpu.*``,
+  ``ab_index.py``, ``bench_gpu.py`` and the port's scripts the smoke and the
+  bench import (``scripts/bench_encode_variants.py``,
+  ``bench_device_step_torch.py``, ``bench_merge_fanin_torch.py``,
+  ``certify_k19_torch.py``): no import of ``pykmer_tpu``, ``pykmer_tpu.*``,
   ``scripts.*`` or jax;
 - each copy's code is its original's (docstrings aside), but for the native
   library's build, the profiling hooks and the merged ``config``; the C++
@@ -84,7 +86,9 @@ def _read(path):
 
 
 def _port_sources():
-    out = ["chip_smoke.py", "ab_index.py", "scripts/bench_encode_variants.py"]
+    out = ["chip_smoke.py", "ab_index.py", "bench_gpu.py", "scripts/bench_encode_variants.py",
+           "scripts/bench_device_step_torch.py", "scripts/bench_merge_fanin_torch.py",
+           "scripts/certify_k19_torch.py"]
     for root, _, files in os.walk(PORT_PKG):
         out += [os.path.relpath(os.path.join(root, f), REPO) for f in files
                 if f.endswith(".py")]

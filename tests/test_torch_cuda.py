@@ -157,6 +157,39 @@ def test_kernel_int64_codes_above_2_31(cuda):
     assert int(a[(1 << 31) + 5]) == 255
 
 
+K19_WINDOW = 1 << 22  # the window plane of scripts/certify_k19_torch.py, part D
+
+
+@pytest.mark.parametrize("base", [0, 3 << 31, (1 << 36) + (5 << 22), (1 << 37) - K19_WINDOW])
+def test_kernel_int64_window_of_the_k19_range(cuda, base):
+    # part D on the card: folded K=19 codes over the 2^37 range, shifted by a
+    # window base (above 2^32 for the last two), into a 2^22-cell window
+    rng = np.random.default_rng(base % 1000)
+    codes = rng.integers(0, 1 << 37, size=1 << 20)
+    codes[: 1 << 16] = rng.integers(base, base + K19_WINDOW, size=1 << 16)
+    codes[(1 << 16) : (1 << 16) + 3000] = base + 17  # a saturating run in the window
+    out = _kernel_vs_plain(np.zeros(K19_WINDOW, dtype=np.uint8), codes - base, torch.int64,
+                           cuda)
+    assert int(out[17]) == 255
+    inside = np.unique(codes[(codes >= base) & (codes < base + K19_WINDOW)])
+    assert int(out.count_nonzero()) == inside.shape[0]
+
+
+def test_certify_k19_part_d_on_card(cuda):
+    import sys
+
+    scripts = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import certify_k19_torch as cert
+
+    seq = cert.build_fixture(np.random.default_rng(cert.FIXTURE_SEED), piece=5000, n_pieces=2)
+    before = sweep.LAUNCHES_I64
+    cert.certify(cuda, seq, parts="D")
+    assert sweep.LAUNCHES_I64 == before + 4  # one int64 launch a window
+
+
 # ---- the encode kernels (csrc/encode.cu) -------------------------------------
 
 ENCODE_K = [1, 15, 17, 19, 21, 31]
