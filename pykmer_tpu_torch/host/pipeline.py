@@ -17,6 +17,7 @@ from typing import Iterator, Optional, Tuple, Union
 import numpy as np
 
 from ..utils import renice_current_thread
+from ..utils.profiling import carry, span
 
 from .chunks import chunk_stream, iter_chunks_packed_lazy, iter_chunks_prepacked
 from .segments import StreamingInput, iter_segments_streaming, segment_record_bounds
@@ -54,14 +55,18 @@ def iter_pipelined_chunks(
         if seg is None:
             return None
         lo, hi = seg
-        # the packed decode writes the upload planes directly, so the
-        # consumer does no packing: its chunks are views
-        res = native.fasta_decode_joined_packed_native(
-            buf[lo:hi], kmer_len, threads=2, tail_headroom=headroom + 8)
-        if res is not None:
-            return ("packed", res)
-        return ("codes", native.fasta_decode_joined_native(
-            buf[lo:hi], kmer_len, threads=2, tail_headroom=headroom))
+        with span("decode", bytes=hi - lo) as counts:
+            # the packed decode writes the upload planes directly, so the
+            # consumer does no packing: its chunks are views
+            res = native.fasta_decode_joined_packed_native(
+                buf[lo:hi], kmer_len, threads=2, tail_headroom=headroom + 8)
+            if res is not None:
+                counts["bases"] = res[4]
+                return ("packed", res)
+            res = native.fasta_decode_joined_native(
+                buf[lo:hi], kmer_len, threads=2, tail_headroom=headroom)
+            counts["bases"] = res[2]
+            return ("codes", res)
 
     sink["chromosomes"] = []
     sink["total_bp"] = 0
@@ -87,11 +92,13 @@ def iter_pipelined_chunks(
         except BaseException as exc:  # re-raised on the consumer's thread
             put(("err", exc))
 
-    prod = threading.Thread(target=producer, daemon=True)
+    # the producer's spans nest under the span open here
+    prod = threading.Thread(target=carry(producer), daemon=True, name="decode")
     prod.start()
     try:
         while True:
-            status, nxt = q.get()
+            with span("decode queue wait"):
+                status, nxt = q.get()
             if status == "err":
                 raise nxt
             if nxt is None:

@@ -21,6 +21,7 @@ import numpy as np
 
 from ..utils import renice_current_thread
 from ..utils.bigmem import big_empty
+from ..utils.profiling import span
 
 
 def find_record_start(buf: np.ndarray, start: int, limit: int) -> Optional[int]:
@@ -160,7 +161,8 @@ def iter_segments_streaming(
         found = None
         while found is None:
             avail = stream.filled()
-            stream.wait_until(min(size, max(avail, scan_from + wait_slack)))
+            with span("input wait"):
+                stream.wait_until(min(size, max(avail, scan_from + wait_slack)))
             avail = stream.filled()
             found = find_record_start(stream.buf, scan_from, avail)
             if found is None:

@@ -41,7 +41,7 @@ from ..io.direct import DirectWriter
 from ..io.fasta import open_input_bytes
 from ..utils.bigmem import big_empty, big_zeros
 from ..utils.checksum import sha256_file
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, device_trace, span
 from .. import resolve_device
 from ..host.chunks import chunk_stream, iter_chunks_packed_lazy
 from ..host.decode import decode_joined_bytes
@@ -137,7 +137,9 @@ def create_fasta_index(
     timer = header.timer
     cw = config.chunk_windows
     tmp = header.index_tmp_file
-    with ThreadPoolExecutor(1) as hash_pool:
+    # a torch.profiler trace of the pipeline, with the worker threads'
+    # spans, when PYKMER_TPU_TRACE_DIR is set; no-op otherwise
+    with device_trace(stages=stages), ThreadPoolExecutor(1) as hash_pool:
         if streaming:
             # the reader and input-hash threads start here; decode and
             # uploads chase them
@@ -224,14 +226,14 @@ def create_fasta_index(
                 output_checksum=output_ck,
             )
 
-    if verify:
-        # the end-to-end invariant: stats derived from the written file must
-        # equal the in-memory ones
-        with stages.stage("verify"):
-            fresh = KinHeader(project_name, input_file=name_stem, kmer_len=kmer_len)
-            fresh.update_stats_from_file(tmp)
-            if fresh.hist != header.hist or fresh.vals_sum != header.vals_sum:
-                raise AssertionError("written .kin does not match computed stats")
+        if verify:
+            # the end-to-end invariant: stats derived from the written file
+            # must equal the in-memory ones
+            with stages.stage("verify"):
+                fresh = KinHeader(project_name, input_file=name_stem, kmer_len=kmer_len)
+                fresh.update_stats_from_file(tmp)
+                if fresh.hist != header.hist or fresh.vals_sum != header.vals_sum:
+                    raise AssertionError("written .kin does not match computed stats")
 
     os.rename(tmp, header.index_file_root)
     if os.environ.get("PYKMER_TPU_STAGE_TIMING"):
@@ -240,6 +242,7 @@ def create_fasta_index(
             report += (f"\n  device peak memory: "
                        f"{torch.cuda.max_memory_allocated(device)} bytes")
         print(report, file=sys.stderr)
+    stages.finish()
     if verbose:
         print("done")
     return header
@@ -338,7 +341,8 @@ class ChunkUploader:
                     None if maskbits is None else torch.from_numpy(maskbits))
         pin_b, pin_m, done = self.slots[self.next]
         self.next = (self.next + 1) % len(self.slots)
-        done.synchronize()  # the slot's previous copies have landed
+        with span("upload slot wait"):
+            done.synchronize()  # the slot's previous copies have landed
         dev_b = self._copy(pin_b, bases2)
         dev_m = None if maskbits is None else self._copy(pin_m, maskbits)
         # on the stream of the copies' card, which need not be the current one
@@ -349,7 +353,8 @@ class ChunkUploader:
         n = arr.shape[0]
         if n > pinned.shape[0]:
             raise ValueError(f"chunk of {n} bytes exceeds its {pinned.shape[0]}-byte slot")
-        pinned.numpy()[:n] = arr
+        with span("upload stage", bytes=n):
+            pinned.numpy()[:n] = arr
         dev = torch.empty(n, dtype=torch.uint8, device=self.device)
         return dev.copy_(pinned[:n], non_blocking=True)
 

@@ -342,7 +342,7 @@ def _build(project_name, sample_name, input_file, kmer_len, overwrite, config,
         else:
             local_stream = None
         del stream
-    stages.stages.append(("byte-range read + decode", time.perf_counter() - t_read))
+    stages.add("byte-range read + decode", time.perf_counter() - t_read)
 
     # the input's sha256 on process 0, overlapping the accumulate
     input_ck: dict = {}

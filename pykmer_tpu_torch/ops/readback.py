@@ -58,7 +58,7 @@ import torch
 from ..formats.header import fast_counts256
 from ..io.direct import DirectReader, pread_into_mt
 from ..utils.bigmem import big_empty
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, carry, span
 from . import packing
 
 SLICE_CELLS = 64 << 20  # folded cells per device-to-host slice
@@ -250,8 +250,10 @@ class ChaseSink:
         self.fd = fd
         self.full = out.shape[0]
         self.h = hashlib.sha256()
-        self.writers = ThreadPoolExecutor(WRITE_THREADS) if fd is not None else None
-        self.hasher = ThreadPoolExecutor(1)  # one worker: updates stay in order
+        self.writers = ThreadPoolExecutor(WRITE_THREADS, thread_name_prefix="chase-write") \
+            if fd is not None else None
+        # one worker: updates stay in order
+        self.hasher = ThreadPoolExecutor(1, thread_name_prefix="chase-hash")
         self._futs: List = []
         self.expected = 0
 
@@ -262,10 +264,11 @@ class ChaseSink:
             raise ValueError(f"region [{lo}, {hi}) out of order; expected {self.expected}")
         if self.writers is not None:
             full = self.full
-            self._futs.append(self.writers.submit(pwrite_all, self.fd, self.out[lo:hi], lo))
+            write = carry(_spanned_pwrite)
+            self._futs.append(self.writers.submit(write, self.fd, self.out[lo:hi], lo))
             self._futs.append(self.writers.submit(
-                pwrite_all, self.fd, self.out[full - hi : full - lo], full - hi))
-        self._futs.append(self.hasher.submit(self.h.update, self.out[lo:hi]))
+                write, self.fd, self.out[full - hi : full - lo], full - hi))
+        self._futs.append(self.hasher.submit(carry(_spanned_update), self.h, self.out[lo:hi]))
         self.expected = hi
 
     def finish(self) -> str:
@@ -273,8 +276,13 @@ class ChaseSink:
         of the whole of ``out``."""
         if self.expected != self.full // 2:
             raise ValueError(f"regions end at {self.expected}, not {self.full // 2}")
-        self._futs.append(self.hasher.submit(self.h.update, self.out[self.full // 2 :]))
-        self.abort()
+        self._futs.append(self.hasher.submit(carry(_spanned_update), self.h,
+                                             self.out[self.full // 2 :]))
+        if self.writers is not None:
+            with span("write drain wait"):
+                self.writers.shutdown(wait=True)
+        with span("hash drain wait"):
+            self.hasher.shutdown(wait=True)
         for f in self._futs:
             f.result()  # surface any pwrite failure (ENOSPC, EIO, ...)
         return self.h.hexdigest()
@@ -306,8 +314,8 @@ class PieceSink:
         self.path = path
         self.full = full
         self.h = hashlib.sha256()
-        self.writers = ThreadPoolExecutor(WRITE_THREADS)
-        self.hasher = ThreadPoolExecutor(1)
+        self.writers = ThreadPoolExecutor(WRITE_THREADS, thread_name_prefix="piece-write")
+        self.hasher = ThreadPoolExecutor(1, thread_name_prefix="piece-hash")
         self._pieces: collections.deque = collections.deque()
         self.expected = 0
 
@@ -315,10 +323,11 @@ class PieceSink:
         if lo != self.expected:
             raise ValueError(f"piece [{lo}, {hi}) out of order; expected {self.expected}")
         n = hi - lo
+        write = carry(_spanned_pwrite)
         self._pieces.append([
-            self.writers.submit(pwrite_all, self.fd, primary[:n], lo),
-            self.writers.submit(pwrite_all, self.fd, mirror[:n], self.full - hi),
-            self.hasher.submit(self.h.update, primary[:n]),
+            self.writers.submit(write, self.fd, primary[:n], lo),
+            self.writers.submit(write, self.fd, mirror[:n], self.full - hi),
+            self.hasher.submit(carry(_spanned_update), self.h, primary[:n]),
         ])
         self.expected = hi
         while len(self._pieces) > PIECES_IN_FLIGHT:
@@ -351,7 +360,7 @@ class PieceSink:
                 buf = nxt.result()
                 if i + 1 < len(bounds):
                     nxt = pre.submit(read, i + 1)
-                self.h.update(buf)
+                _spanned_update(self.h, buf)
         return self.h.hexdigest()
 
     def abort(self) -> None:
@@ -359,6 +368,18 @@ class PieceSink:
         as :meth:`ChaseSink.abort`)."""
         self.writers.shutdown(wait=True)
         self.hasher.shutdown(wait=True)
+
+
+def _spanned_pwrite(fd, arr: np.ndarray, offset: int) -> None:
+    """:func:`pwrite_all` as a "pwrite" span of its bytes."""
+    with span("pwrite", bytes=arr.nbytes):
+        pwrite_all(fd, arr, offset)
+
+
+def _spanned_update(h, arr: np.ndarray) -> None:
+    """``h.update(arr)`` as a "sha256" span of its bytes."""
+    with span("sha256", bytes=arr.nbytes):
+        h.update(arr)
 
 
 def _slice_bounds(half: int, slice_cells: int) -> List[Tuple[int, int]]:
@@ -415,7 +436,8 @@ def _cuda_slices(
         for i, (lo, hi) in enumerate(bounds):
             if i + 1 < len(bounds):
                 enqueue(i + 1)
-            ready[i % 2].synchronize()
+            with span("d2h wait", bytes=out_len(lo, hi)):
+                ready[i % 2].synchronize()
             yield bufs[i % 2].numpy()[: out_len(lo, hi)]
     finally:
         side.synchronize()  # no copy may outlive its buffer
@@ -573,12 +595,14 @@ def _slices_to_out(
     try:
         with ThreadPoolExecutor(UNFOLD_THREADS) as pool:
             for (lo, hi), host in zip(bounds, slices):
-                if fused is not None:
-                    counts += _unpack_unfold(plane, host, width, out, kmer_len, lo,
-                                             pool, *fused)
-                else:
-                    folded = host if width is None else _unpack_patched(plane, host, width, lo)
-                    counts += _unfold(folded, out, kmer_len, lo, pool)
+                with span("unfold", cells=hi - lo):
+                    if fused is not None:
+                        counts += _unpack_unfold(plane, host, width, out, kmer_len, lo,
+                                                 pool, *fused)
+                    else:
+                        folded = host if width is None \
+                            else _unpack_patched(plane, host, width, lo)
+                        counts += _unfold(folded, out, kmer_len, lo, pool)
                 sink.region_done(lo, hi)
     finally:
         slices.close()
@@ -638,7 +662,8 @@ def _segment_reads(plane: torch.Tensor, fallbacks: List[float]) -> Iterator[tupl
         tok, side, escpos, (n_nz, _, _) = packing.pack_sparse_segment(seg, cap)
         if n_nz > cap:
             t0 = time.perf_counter()
-            folded = fetch_dense(seg, "2bit")
+            with span("2-bit fallback", cells=hi - lo):
+                folded = fetch_dense(seg, "2bit")
             fallbacks.append(time.perf_counter() - t0)
             yield lo, hi, folded
         else:
@@ -655,13 +680,15 @@ def _decode_in_order(
     next segment packs and copies; ``emit(lo, hi, decoded)`` runs on this
     thread in segment order and returns the segment's 256-bin counts, which
     are summed. ``stages`` receives the loop as ``label`` and the segments
-    read through the 2-bit plane as a "2-bit fallback" entry."""
+    read through the 2-bit plane as a "2-bit fallback" entry: rows of the
+    loop less the fallbacks, and of the fallbacks; its spans are the loop's
+    and each fallback's."""
     fallbacks: List[float] = []
     pending: collections.deque = collections.deque()
     counts = np.zeros(256, dtype=np.int64)
     n_segs = 0
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+    with stages.span(label), ThreadPoolExecutor(DECODE_THREADS) as pool:
         try:
             for lo, hi, item in _segment_reads(plane, fallbacks):
                 n_segs += 1
@@ -678,9 +705,9 @@ def _decode_in_order(
                 fut.cancel()
             raise
     fb = sum(fallbacks)
-    stages.stages.append((label, time.perf_counter() - t0 - fb))
+    stages.add(label, time.perf_counter() - t0 - fb)
     if fallbacks:
-        stages.stages.append((f"2-bit fallback, {len(fallbacks)} of {n_segs} segs", fb))
+        stages.add(f"2-bit fallback, {len(fallbacks)} of {n_segs} segs", fb)
     return counts
 
 

@@ -280,7 +280,8 @@ def combine_partials_sharded(
         t_exchange += t1 - t0
         t_add += time.perf_counter() - t1
     if stages is not None:
-        stages.stages += [("combine exchange", t_exchange), ("combine add", t_add)]
+        stages.add("combine exchange", t_exchange)
+        stages.add("combine add", t_add)
     return pieces
 
 

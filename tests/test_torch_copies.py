@@ -10,7 +10,9 @@ here against their originals.
   ``certify_k19_torch.py``): no import of ``pykmer_tpu``, ``pykmer_tpu.*``,
   ``scripts.*`` or jax;
 - each copy's code is its original's (docstrings aside), but for the native
-  library's build, the profiling hooks and the merged ``config``; the C++
+  library's build, the profiling hooks (the port's ``StageTimer`` is its
+  own span recorder: the same rows give the original's ``report()`` text)
+  and the merged ``config``; the C++
   source is byte-identical; single copied functions (multi-host input
   splitting and combine helpers, ``unfold_piece``) are compared function by
   function;
@@ -19,7 +21,8 @@ here against their originals.
   bgz), every native function, ``sha256_file``, ``big_empty``, the oracle's
   `.kin`, testgen's file, distances and kwip comparisons;
 - the port's native library builds under ``build/native/``, and
-  ``StageTimer`` under a trace directory writes a torch profiler trace.
+  ``StageTimer`` under a trace directory writes a torch profiler trace that
+  names its spans.
 """
 
 import ast
@@ -62,7 +65,9 @@ import pykmer_tpu_torch.oracle as toracle
 import pykmer_tpu_torch.testgen as ttestgen
 import pykmer_tpu_torch.utils as tutils
 import pykmer_tpu_torch.utils.bigmem as tbigmem
-from pykmer_tpu_torch.utils.profiling import StageTimer, annotate, device_trace
+import pykmer_tpu.utils.profiling as jprofiling
+import pykmer_tpu_torch.utils.profiling as tprofiling
+from pykmer_tpu_torch.utils.profiling import StageTimer, device_trace, span
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.dirname(pykmer_tpu.__file__)
@@ -140,13 +145,17 @@ def test_copy_is_faithful(rel):
         start = "_lib.fasta_decode.restype"
         assert _body(port, start) == _body(orig, start)
     elif rel == "utils/profiling.py":
-        # jax.profiler mapped to torch.profiler in device_trace and annotate;
-        # StageTimer is the original's
-        def stage_timer(path):
-            return next(ast.dump(n) for n in ast.parse(_read(path)).body
-                        if isinstance(n, ast.ClassDef) and n.name == "StageTimer")
-
-        assert stage_timer(port) == stage_timer(orig)
+        # jax.profiler mapped to torch.profiler in device_trace; the port's
+        # StageTimer is its span recorder, and the same rows give the
+        # original's table, the text operators and the benchmark read
+        rows = [("input read", 0.0012), ("decode + accumulate (pipelined)", 1.25),
+                ("copy + unfold", 0.7), ("write + hash drain", 0.45), ("verify", 0.0)]
+        timers = [tprofiling.StageTimer(), jprofiling.StageTimer()]
+        for timer in timers:
+            for name, seconds in rows:
+                timer.stages.append((name, seconds))
+        assert timers[0].report() == timers[1].report()
+        assert tprofiling.StageTimer().report() == jprofiling.StageTimer().report()
     else:
         assert _body(port) == _body(orig)
 
@@ -518,15 +527,16 @@ def test_distance_and_kwip_match(tmp_path):
 
 def test_stage_timer_writes_a_torch_trace(tmp_path, monkeypatch):
     trace_dir = str(tmp_path / "trace")
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")  # the timer records its spans
     stages = StageTimer()
     with device_trace(trace_dir):
-        with stages.stage("decode stage"), annotate("decode span"):
+        with stages.stage("decode stage"), span("decode span"):
             torch.ones(1000).cumsum(0)
     files = os.listdir(trace_dir)
     assert len(files) == 1 and files[0].endswith(".json")
     events = json.loads(_read(os.path.join(trace_dir, files[0])))["traceEvents"]
     names = {e.get("name") for e in events}
-    assert {"decode span", "aten::cumsum"} <= names
+    assert {"decode stage", "decode span", "aten::cumsum"} <= names
     # the directory may come from PYKMER_TPU_TRACE_DIR, as in the original
     monkeypatch.setenv("PYKMER_TPU_TRACE_DIR", str(tmp_path / "env"))
     with device_trace():

@@ -1,0 +1,243 @@
+"""The port's span recorder on the CPU: one pipelined index records the
+spans of its dispatch thread, decode producer, hasher and writers as one
+run, with counts that add up, inside their parents; the stage table keeps
+its rows; nothing is recorded with both switches unset; and under
+``PYKMER_TPU_TRACE_DIR`` one chrome trace holds the worker threads' spans
+on their own rows, on the profiler's clock."""
+
+import collections
+import functools
+import json
+import os
+import re
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_random_fasta
+
+import pykmer_tpu_torch
+from pykmer_tpu_torch.config import IndexConfig
+from pykmer_tpu_torch.index import indexer as tix
+from pykmer_tpu_torch.ops import packing
+from pykmer_tpu_torch.ops import readback as trb
+from pykmer_tpu_torch.utils import profiling
+
+K = 9
+# the table the pipelined raw index prints, row by row
+STAGE_ROWS = ["input read", "decode + accumulate (pipelined)", "output alloc",
+              "copy + unfold", "write + hash drain", "metadata", "verify"]
+DISPATCH_SPANS = {"decode queue wait", "unfold", "write drain wait", "hash drain wait"}
+WORKER_SPANS = {"decode", "input wait", "sha256", "pwrite"}
+
+
+@pytest.fixture
+def finished(monkeypatch):
+    """A fresh list of finished runs, and neither switch set."""
+    runs = collections.deque(maxlen=profiling.RUNS_KEPT)
+    monkeypatch.setattr(profiling, "FINISHED_RUNS", runs)
+    monkeypatch.delenv("PYKMER_TPU_STAGE_TIMING", raising=False)
+    monkeypatch.delenv("PYKMER_TPU_TRACE_DIR", raising=False)
+    return runs
+
+
+def _index(tmp_path, monkeypatch, name="g.fa"):
+    """A pipelined CPU index of 40 records in ~15 kB segments; returns the
+    header and the run's timer."""
+    fasta = make_random_fasta(str(tmp_path / name), np.random.default_rng(17),
+                              n_records=40, lengths=(5000, 1333, 670))
+    monkeypatch.setattr(tix, "iter_pipelined_chunks",
+                        functools.partial(tix.iter_pipelined_chunks, target_segment=15000))
+    timers = []
+    real = tix.StageTimer
+
+    def spy():
+        timers.append(real())
+        return timers[-1]
+
+    monkeypatch.setattr(tix, "StageTimer", spy)
+    header = pykmer_tpu_torch.create_fasta_index(
+        fasta, "s", fasta, K, config=IndexConfig(kmer_len=K, chunk_windows=4096),
+        verbose=False, device="cpu")
+    assert len(timers) == 1
+    return header, timers[0]
+
+
+def _table_rows(text):
+    """The stage names of the one table in ``text``, each row in the
+    table's format."""
+    lines = text.splitlines()
+    at = lines.index("stage timing (device strategy):")
+    rows = [re.match(r"^  (.+?)\s+-?\d+\.\d ms\s+-?\d+\.\d%$", line)
+            for line in lines[at + 1:]]
+    assert all(rows)
+    return [m.group(1) for m in rows]
+
+
+def test_one_index_records_every_thread_as_one_run(tmp_path, monkeypatch, finished, capsys):
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    header, timer = _index(tmp_path, monkeypatch)
+    assert list(finished) == [timer]
+    spans = timer.spans
+    assert spans and all(s.end >= s.start > 0 for s in spans)
+    me = threading.current_thread().name
+    threads = {s.thread for s in spans}
+    assert me in threads and "decode" in threads
+    assert any(t.startswith("chase-hash") for t in threads)
+    assert any(t.startswith("chase-write") for t in threads)
+    names = collections.Counter(s.name for s in spans)
+    assert DISPATCH_SPANS | WORKER_SPANS | set(STAGE_ROWS) <= set(names)
+    assert names["decode"] > 3 and names["decode queue wait"] > names["decode"]
+    by_thread = {name: {s.thread for s in spans if s.name == name} for name in names}
+    for name in DISPATCH_SPANS | set(STAGE_ROWS):
+        assert by_thread[name] == {me}, name
+    assert by_thread["decode"] == by_thread["input wait"] == {"decode"}
+    assert all(t.startswith("chase-hash") for t in by_thread["sha256"])
+    assert all(t.startswith("chase-write") for t in by_thread["pwrite"])
+    # the main thread's spans are the ones the profiler sees
+    assert all(s.traced == (s.thread == me) for s in spans)
+    # the printed table is the parent's: its stages, in order, and no sub-span
+    assert _table_rows(capsys.readouterr().err) == STAGE_ROWS
+    assert [name for name, _ in timer.stages] == STAGE_ROWS
+
+
+def test_counts_add_up(tmp_path, monkeypatch, finished):
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    header, timer = _index(tmp_path, monkeypatch)
+
+    def total(name, key):
+        return sum(s.counts[key] for s in timer.spans if s.name == name)
+
+    assert total("decode", "bases") == sum(n for _, n in header.chromosomes)
+    assert total("decode", "bytes") == os.path.getsize(str(tmp_path / "g.fa"))
+    assert total("sha256", "bytes") == 4**K
+    assert total("pwrite", "bytes") == 4**K
+    assert total("unfold", "cells") == 4**K // 2
+
+
+def test_sub_spans_lie_inside_their_parents(tmp_path, monkeypatch, finished):
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    _, timer = _index(tmp_path, monkeypatch)
+    stages = [s for s in timer.spans if s.parent is None]
+    assert [s.name for s in stages] == STAGE_ROWS
+    assert all(a.end <= b.start for a, b in zip(stages, stages[1:]))
+    first, last = stages[0].start, stages[-1].end
+    for s in timer.spans:
+        if s.parent is None:
+            continue
+        assert s.parent.parent is None, s.name  # every sub-span sits under a stage
+        assert s.parent.start <= s.start, s.name
+        if s.thread == s.parent.thread:
+            assert s.end <= s.parent.end, s.name
+        else:  # a worker's span: submitted within its stage, done within the index
+            assert first <= s.start <= s.end <= last, s.name
+    parents = {s.name: s.parent.name for s in timer.spans if s.parent is not None}
+    assert parents["decode queue wait"] == parents["decode"] == parents["input wait"] \
+        == "decode + accumulate (pipelined)"
+    assert parents["unfold"] == "copy + unfold"
+    assert parents["write drain wait"] == parents["hash drain wait"] == "write + hash drain"
+
+
+def test_nothing_is_recorded_with_both_switches_unset(tmp_path, monkeypatch, finished,
+                                                      capsys):
+    _, timer = _index(tmp_path, monkeypatch)
+    assert not timer.record and timer.spans == [] and not finished
+    assert [name for name, _ in timer.stages] == STAGE_ROWS
+    err = capsys.readouterr().err
+    assert "stage timing" not in err
+    with profiling.span("loose") as counts:  # no run open: records nothing
+        counts["bytes"] = 1
+    assert profiling.carry(len) is len
+
+
+def test_trace_dir_writes_one_trace_with_every_thread(tmp_path, monkeypatch, finished,
+                                                      capsys):
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("PYKMER_TPU_TRACE_DIR", str(trace_dir))
+    _, timer = _index(tmp_path, monkeypatch)
+    assert timer.record and list(finished) == [timer]
+    assert "stage timing" not in capsys.readouterr().err  # the table needs its own switch
+    files = os.listdir(trace_dir)
+    assert len(files) == 1 and files[0].endswith(".json")
+    with open(trace_dir / files[0]) as fh:
+        trace = json.load(fh)
+    base = trace["baseTimeNanoseconds"]
+    events = trace["traceEvents"]
+    rows = {e["tid"]: e["args"]["name"] for e in events
+            if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    marks = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    workers = [e for e in events if e.get("ph") == "X" and e.get("cat") == "thread_span"]
+    main_tid = threading.get_native_id()
+    assert {e["name"] for e in workers} == WORKER_SPANS
+    assert all(e["tid"] != main_tid and e["pid"] == os.getpid() for e in workers)
+    assert {rows[e["tid"]] for e in workers if e["name"] == "decode"} == {"decode"}
+    assert {rows[e["tid"]].split("_")[0] for e in workers} == {"decode", "chase-hash",
+                                                                "chase-write"}
+    # the workers' spans lie inside the index, on the trace's clock
+    stage = {e["name"]: e for e in marks}
+    lo, hi = stage["input read"]["ts"], stage["verify"]["ts"] + stage["verify"]["dur"]
+    assert all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in workers)
+    # each span of the main thread is a record_function event of its name
+    # and tid, on one clock: the span reads the clock inside its event, so
+    # it lies within it (to the profiler's 0.1 ms of clock conversion); the
+    # stages that run while no other thread of the index does agree with
+    # their events to 1 ms at both ends (elsewhere a thread that takes the
+    # GIL between the two clock reads can part them by a few ms)
+    main = [s for s in timer.spans if s.traced]
+    assert {s.name for s in main} == DISPATCH_SPANS | set(STAGE_ROWS)
+    for s in main:
+        start, end = (s.start - base) / 1e3, (s.end - base) / 1e3
+        hit = min((e for e in marks if e["name"] == s.name),
+                  key=lambda e: abs(e["ts"] - start))
+        assert hit["tid"] == main_tid
+        assert hit["ts"] - 100 <= start <= end <= hit["ts"] + hit["dur"] + 100, s.name
+        if s.name in ("output alloc", "metadata", "verify"):
+            assert start - hit["ts"] < 1e3 and hit["ts"] + hit["dur"] - end < 1e3, s.name
+
+
+def test_the_sparse_tail_records_its_loop_and_fallbacks(rng, monkeypatch, finished):
+    """The sparse tail's rows are timed by the caller (the loop less its
+    2-bit fallbacks): the loop and each fallback are spans, the rows as
+    before."""
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    monkeypatch.setattr(packing, "SPARSE_MIN_CELLS", 1)
+    monkeypatch.setattr(packing, "SPARSE_SEG_CELLS", 1 << 13)
+    folded = rng.integers(0, 3, size=4**K // 2, dtype=np.uint8)  # dense: every segment falls back
+    timer = profiling.StageTimer()
+    out = np.zeros(4**K, np.uint8)
+    trb.stream_plane_to_out(torch.from_numpy(folded), K, out, stages=timer, mode="sparse")
+    n_segs = 4**K // 2 // (1 << 13)
+    assert [name for name, _ in timer.stages] == [
+        "copy + decode (sparse)", f"2-bit fallback, {n_segs} of {n_segs} segs",
+        "write + hash drain"]
+    loop = next(s for s in timer.spans if s.name == "copy + decode (sparse)")
+    falls = [s for s in timer.spans if s.name == "2-bit fallback"]
+    assert len(falls) == n_segs and all(s.parent is loop for s in falls)
+    assert sum(s.counts["cells"] for s in falls) == 4**K // 2
+    assert sum(s.counts["bytes"] for s in timer.spans if s.name == "sha256") == 4**K
+    assert not finished  # a timer outside an index hands no run on
+
+
+def test_carry_binds_a_worker_to_the_span_open_at_submission(monkeypatch, finished):
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    timer = profiling.StageTimer()
+
+    def work():
+        with profiling.span("on the worker", bytes=3):
+            pass
+
+    with timer.stage("outer"):
+        t = threading.Thread(target=profiling.carry(work), name="worker")
+    t.start()
+    t.join()
+    t = threading.Thread(target=work)  # not carried: records nothing
+    t.start()
+    t.join()
+    outer, inner = timer.spans
+    assert (inner.name, inner.thread, inner.parent, inner.counts) == \
+        ("on the worker", "worker", outer, {"bytes": 3})
+    assert not inner.traced and outer.traced
+    timer.finish()
+    assert list(finished) == [timer]
