@@ -45,7 +45,8 @@ Phases — each one passes or raises, and any failure exits non-zero:
 4. the slice at real size: a seeded 256 Mbp genome with repeat families,
    indexed at K=15 through the CLI entry point with verify on (the streaming
    pipeline); the kernel's launch count equals the count of chunks the
-   pipeline frames, and so does the packed encode kernel's; a replay of the
+   pipeline frames, and so does the packed encode kernel's, and the card's
+   FASTA decode launches once for each record-aligned segment; a replay of the
    same chunks with the plain encoder and the plain sweep gives the same
    `.kin` byte for byte; a gzip -1 copy of the genome (the pipelined path
    that reads the input whole) and the host strategy (one encode launch a
@@ -54,6 +55,13 @@ Phases — each one passes or raises, and any failure exits non-zero:
    ``fetch_dense`` in every mode ``torch.equal`` to the plane, the escape
    counts and the JAX package's choice (``packing.pick_mode``), and each
    device op of the modes timed with CUDA events;
+4a. the card's FASTA decode (``ops/fasta.decode_packed``, ``csrc/fasta.cu``)
+   on each of those segments and on one steady-state segment (the records
+   up to the first record start past ``TARGET_SEGMENT``, 192 MiB), against
+   its plain torch version on the CPU copy of the same bytes: planes,
+   ``n_codes`` and record table equal; its median time on the card beside
+   its byte bound (the raw bytes read once and the planes written once, at
+   3.35 TB/s), and the plain version's on the card;
 4b. the genome at K=15 in this process through ``create_fasta_index`` with
    ``IndexConfig(readback=...)`` raw, packed, 2bit, 3bit, sparse, raw again:
    each `.kin` sha256 phase 4's, each stage table logged, and whether the
@@ -76,7 +84,8 @@ Phases — each one passes or raises, and any failure exits non-zero:
    the sparse numpy oracle's counts and no other cell nonzero; then the
    genome through the CLI with verify on (``readback="auto"``: the pieces
    tail), with its stage table, bp/s and peak device memory; the int64
-   launches of the sweep and of the encode kernel equal the chunk count, and
+   launches of the sweep and of the encode kernel equal the chunk count, the
+   FASTA decode's the segment count, and
    a replay of the same chunks (plain encoder) gives a kernel plane equal to
    the plain-sweep plane
    (``torch.equal`` on the card) whose stats are the `.kin`'s; the readback
@@ -135,7 +144,7 @@ Phases — each one passes or raises, and any failure exits non-zero:
    K=17 its peak device memory and peak host RSS. A worker that fails or
    times out fails the phase, and every worker is reaped;
 12. a JSON line of the kernels (the sweep's four rows, the encode
-   kernels' four), then the last line
+   kernels' four, the FASTA decode's one), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2b runs after phase 2, then 2c; phases 7-9 between phases 2c and 3
@@ -145,7 +154,8 @@ outside a checkout of the repository. It never imports jax. Scratch files go
 under ``build/smoke`` (git-ignored) and are removed at the end. It needs
 about 35 GiB of free disk there (two 1 GiB K=15 files, one 16 GiB K=17 file
 at a time) and 60 GiB of host memory (phase 11c: two processes, each with
-its 8 GiB partial plane and 4 GiB of combined pieces).
+its 8 GiB partial plane and 4 GiB of combined pieces; phase 4a's plain decode
+of its steady-state segment takes about 32 GiB, on the host and on the card).
 """
 
 import contextlib
@@ -574,7 +584,7 @@ def phase_slice(work, dev):
 
     import bench
     from pykmer_tpu_torch.utils.checksum import sha256_file
-    from pykmer_tpu_torch.ops import encode, sweep
+    from pykmer_tpu_torch.ops import encode, fasta, sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
     from pykmer_tpu_torch.ops.readback import unfold_canonical
 
@@ -586,16 +596,19 @@ def phase_slice(work, dev):
     cw = chunk_windows_for(genome, k, dev)
     chunks, total_bp = pipelined_chunks(genome, k, cw)
 
-    sweep.LAUNCHES = encode.LAUNCHES = 0
+    segments = len(card_segments(genome))
+    sweep.LAUNCHES = encode.LAUNCHES = fasta.LAUNCHES = 0
     wall, table = run_cli(["index", genome, "s", str(k), "--device", str(dev)])
-    launches, enc_launches = sweep.LAUNCHES, encode.LAUNCHES
+    launches, enc_launches, dec_launches = sweep.LAUNCHES, encode.LAUNCHES, fasta.LAUNCHES
     log(table)
     log(f"index K={k}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
         f"(verify on, streaming input), {len(chunks)} chunks of {cw} windows, "
-        f"{launches} sweep launches, {enc_launches} encode launches")
-    if launches != len(chunks) or enc_launches != len(chunks):
+        f"{launches} sweep launches, {enc_launches} encode launches, {dec_launches} "
+        f"FASTA decode launches for {segments} segments")
+    if launches != len(chunks) or enc_launches != len(chunks) or dec_launches != segments:
         raise AssertionError(f"sweep launched {launches} times and the encode kernel "
-                             f"{enc_launches} for {len(chunks)} chunks")
+                             f"{enc_launches} for {len(chunks)} chunks, the FASTA decode "
+                             f"{dec_launches} times for {segments} segments")
 
     (plane,), nk = replay(chunks, k, cw, dev, [saturating_accumulate_sorted])
     want = unfold_canonical(plane.cpu().numpy(), k)
@@ -617,7 +630,83 @@ def phase_slice(work, dev):
     log(f"plain replay (plain encoder, plain sweep): .kin identical, num_kmers {nk}, "
         f"vals_max 255, output sha256 {sha} (the file's); {n_all_valid} of {len(chunks)} "
         f"chunks all-valid")
-    return (launches, enc_launches), genome, chunks, cw, total_bp, sha, choice
+    return (launches, enc_launches, dec_launches), genome, chunks, cw, total_bp, sha, choice
+
+
+def card_segments(genome):
+    """The record-aligned segments (lo, hi) that a streaming index decodes
+    on the card, one decode launch each."""
+    import numpy as np
+
+    from pykmer_tpu_torch.host.pipeline import TARGET_SEGMENT
+    from pykmer_tpu_torch.host.segments import segment_record_bounds
+
+    return segment_record_bounds(np.fromfile(genome, dtype=np.uint8), TARGET_SEGMENT)
+
+
+def decode_parts(dec):
+    """A decode's planes, joined length and record table, in the order compared."""
+    import torch
+
+    return (dec.bases, dec.mask, torch.tensor([dec.n_codes]), dec.name_off, dec.name_len,
+            dec.seq_len, dec.has_valid)
+
+
+def phase_fasta(dev, genome, cw):
+    """Phase 4a: the card's FASTA decode (``ops/fasta.decode_packed``, the
+    kernels of ``csrc/fasta.cu``) against its plain torch version on the
+    CPU copy of the same bytes, on each segment that phase 4's index
+    decoded and on one steady-state segment (the records up to the first
+    record start at or past ``TARGET_SEGMENT``), with phase 4's framing
+    headroom: the planes, ``n_codes`` and the record table (name offsets
+    and lengths, ``seq_len``, ``has_valid``) equal. Each segment's median
+    ms on the card (CUDA events; the call's one wait for its totals
+    included) beside its byte bound: the raw bytes read once and the
+    planes' ceil(n_codes / 4) + ceil(n_codes / 8) bytes written once, at
+    3.35 TB/s; the plain version on the card timed on the steady-state
+    segment. Returns that segment's (max abs err, ms, plain ms, bound ms)."""
+    import numpy as np
+    import torch
+
+    from pykmer_tpu_torch.host.pipeline import TARGET_SEGMENT
+    from pykmer_tpu_torch.host.segments import find_record_start
+    from pykmer_tpu_torch.ops import fasta
+
+    k = SLICE_K
+    headroom = cw + k + 8  # host/pipeline.iter_card_chunks' framing room
+    buf = np.fromfile(genome, dtype=np.uint8)
+    steady = (0, find_record_start(buf, TARGET_SEGMENT - 1, buf.shape[0]) or buf.shape[0])
+    out = None
+    for lo, hi in card_segments(genome) + [steady]:
+        src = torch.from_numpy(buf[lo:hi])
+        raw = src.to(dev)
+        got = decode_parts(fasta.decode_packed(raw, k, headroom))
+        want = decode_parts(fasta.decode_packed(src, k, headroom))
+        err = 0
+        for a, b in zip(got, want):
+            a = a.cpu()
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"FASTA decode of bytes [{lo}, {hi}): card != plain")
+            if a.numel():
+                err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+        n_codes = int(want[2])
+        del got, want
+        ms = median_ms(lambda: fasta.decode_packed(raw, k, headroom), 10)
+        bound_bytes = (hi - lo) + (n_codes + 3) // 4 + (n_codes + 7) // 8
+        bound = bound_bytes / H100_SXM_BYTES_PER_S * 1e3
+        label = "steady-state segment" if (lo, hi) == steady else "segment"
+        log(f"FASTA decode K={k}, {label} [{lo}, {hi}): {hi - lo} bytes, {n_codes} codes: "
+            f"card == plain (CPU); median {ms:.4f} ms; bound {bound:.4f} ms ({bound_bytes} "
+            f"bytes read once and written once at {H100_SXM_BYTES_PER_S / 1e12} TB/s); "
+            f"at {bound / ms:.3f} of its bound")
+        if (lo, hi) == steady:
+            plain_ms = median_ms(lambda: fasta.decode_packed_plain(raw, k, headroom), 3)
+            log(f"FASTA decode K={k}, steady-state segment: plain torch on the card, median "
+                f"{plain_ms:.3f} ms")
+            out = (err, ms, plain_ms, bound)
+        del src, raw
+        torch.cuda.empty_cache()
+    return out
 
 
 READBACK_MODES = ("raw", "packed", "2bit", "3bit", "sparse")
@@ -900,17 +989,20 @@ def phase_k17(work, dev, genome):
     import torch
 
     from pykmer_tpu_torch.formats.header import stats_from_counts256
-    from pykmer_tpu_torch.ops import encode, sweep
+    from pykmer_tpu_torch.ops import encode, fasta, sweep
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
 
     k = BIG_K
     cw = chunk_windows_for(genome, k, dev)
     chunks, total_bp = pipelined_chunks(genome, k, cw)
     log(f"disk free before K={k}: {shutil.disk_usage(work).free} bytes")
+    segments = len(card_segments(genome))
     sweep.LAUNCHES = sweep.LAUNCHES_I64 = encode.LAUNCHES = encode.LAUNCHES_I64 = 0
+    fasta.LAUNCHES = 0
     wall, table = run_cli(["index", genome, "s", str(k), "--device", str(dev)])
     launches, launches_i64 = sweep.LAUNCHES, sweep.LAUNCHES_I64
     enc_launches = (encode.LAUNCHES, encode.LAUNCHES_I64)
+    dec_launches = fasta.LAUNCHES
     # create_fasta_index resets the peak at its start
     peak = torch.cuda.max_memory_allocated(dev)
     meta = take_outputs(genome + f".{k:02d}.kin")
@@ -918,11 +1010,13 @@ def phase_k17(work, dev, genome):
     log(f"index K={k}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
         f"(verify on, streaming input), peak device memory {peak} bytes, "
         f"{len(chunks)} chunks of {cw} windows, {launches_i64} int64 sweep launches, "
-        f"{enc_launches[1]} int64 encode launches")
+        f"{enc_launches[1]} int64 encode launches, {dec_launches} FASTA decode launches "
+        f"for {segments} segments")
     if launches_i64 != len(chunks) or launches != launches_i64 \
-            or enc_launches != (len(chunks), len(chunks)):
+            or enc_launches != (len(chunks), len(chunks)) or dec_launches != segments:
         raise AssertionError(f"K={k}: {launches_i64} int64 launches ({launches} in all), "
-                             f"encode {enc_launches}, for {len(chunks)} chunks")
+                             f"encode {enc_launches}, for {len(chunks)} chunks; FASTA "
+                             f"decode {dec_launches} for {segments} segments")
 
     torch.cuda.empty_cache()
     (kern, plain), nk = replay(chunks, k, cw, dev,
@@ -1833,8 +1927,9 @@ def main():
         phase_certify_k19(dev)
         phase_merge_fanin(work, dev)
         small_fa = phase_oracle(work, dev)
-        (launches, enc_launches), genome, chunks, cw, total_bp, sha, choice = \
+        (launches, enc_launches, dec_launches), genome, chunks, cw, total_bp, sha, choice = \
             phase_slice(work, dev)
+        dec_times = phase_fasta(dev, genome, cw)
         gz = phase_k15_variants(work, dev, genome, total_bp, sha, cw)
         phase_k15_modes(dev, genome, total_bp, sha, choice)
         log(format_table(step_times(dev, chunks[len(chunks) // 2], SLICE_K, cw)))
@@ -1911,6 +2006,23 @@ def main():
             # no PyTorch call computes canonical k-mer codes
             "library_ms": None,
         })
+    # launches: the K=15 index (phase 4); times: phase 4a's steady-state segment
+    err, ms, plain_ms, bound_ms = dec_times
+    kernels.append({
+        "name": "fasta_decode",
+        "route": "cuda",
+        "source": "pykmer_tpu_torch/csrc/fasta.cu",
+        # the JAX package decodes on the host, with this native decoder
+        "replaces": "pykmer_tpu/native/pykmer_native.cpp:1377",
+        "launches": dec_launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        # no PyTorch call parses FASTA
+        "library_ms": None,
+    })
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

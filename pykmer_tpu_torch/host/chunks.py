@@ -112,18 +112,12 @@ def iter_chunks_packed(
         yield bases[b0 : b0 + b_span], mask[m0 : m0 + m_span]
 
 
-def iter_chunks_prepacked(
-    bases: np.ndarray,
-    mask: np.ndarray,
-    n_codes: int,
-    kmer_len: int,
-    chunk_windows: int,
-):
-    """Yield (bases2, maskbits-or-None) chunks as views of planes that the
-    native packed decode (``io.native.fasta_decode_joined_packed_native``)
-    wrote: invalid-padded past
-    ``n_codes``, with capacity for the final chunk's span. No packing happens
-    here."""
+def frame_prepacked(bases, mask, n_codes: int, kmer_len: int, chunk_windows: int):
+    """Yield (bases2, maskbits) views of the chunks of planes that a packed
+    decode wrote (numpy arrays of the native decode, or tensors of the
+    card's, ``ops/fasta.decode_packed``): invalid-padded past ``n_codes``,
+    with capacity for the final chunk's span. Chunk c covers bases
+    [c*W, c*W + W + K - 1)."""
     if chunk_windows % 8:
         raise ValueError(f"chunk_windows must be a multiple of 8, got {chunk_windows}")
     k = kmer_len
@@ -137,8 +131,22 @@ def iter_chunks_prepacked(
         raise ValueError("packed planes lack the tail capacity of the last chunk")
     for c in range(n_chunks):
         start = c * chunk_windows
-        b = bases[start // 4 : start // 4 + b_span]
-        m = mask[start // 8 : start // 8 + m_span]
+        yield bases[start // 4 : start // 4 + b_span], mask[start // 8 : start // 8 + m_span]
+
+
+def iter_chunks_prepacked(
+    bases: np.ndarray,
+    mask: np.ndarray,
+    n_codes: int,
+    kmer_len: int,
+    chunk_windows: int,
+):
+    """Yield (bases2, maskbits-or-None) chunks as views of planes that the
+    native packed decode (``io.native.fasta_decode_joined_packed_native``)
+    wrote (:func:`frame_prepacked`); the mask is None where a chunk is all
+    valid. No packing happens here."""
+    span = chunk_windows + kmer_len - 1
+    for b, m in frame_prepacked(bases, mask, n_codes, kmer_len, chunk_windows):
         yield b, (None if mask_all_valid(m, span) else m)
 
 

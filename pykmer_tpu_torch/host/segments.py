@@ -13,6 +13,7 @@ segment decodes and counts on its own: the basis of the pipelined input
 from __future__ import annotations
 
 import hashlib
+import mmap
 import os
 import threading
 from typing import Iterator, List, Optional, Tuple
@@ -20,8 +21,8 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..utils import renice_current_thread
-from ..utils.bigmem import big_empty
-from ..utils.profiling import span
+from ..utils.bigmem import BIG_THRESHOLD, big_empty
+from ..utils.profiling import carry, span
 
 
 def find_record_start(buf: np.ndarray, start: int, limit: int) -> Optional[int]:
@@ -66,26 +67,94 @@ def segment_record_bounds(buf: np.ndarray, target: int) -> List[Tuple[int, int]]
             for i in range(len(starts))]
 
 
+class _Pinned:
+    """A page-locked host buffer of ``size`` bytes, registered with CUDA, so
+    that copies from it to a card run asynchronously; page-aligned, so that
+    O_DIRECT reads land in it. A large one is a block of the host pool,
+    whose pages are made resident when the block is made: on an H100 host,
+    850 MB took 0.20 s to make and 0.03 s to register, where a fresh map took
+    0.63 s to register."""
+
+    def __init__(self, size: int):
+        import torch
+
+        self.size = size
+        self.array = big_empty(size) if size >= BIG_THRESHOLD \
+            else np.frombuffer(mmap.mmap(-1, max(size, 1)), dtype=np.uint8)
+        torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(
+            self.array.ctypes.data, self.array.shape[0], 0))
+
+    def free(self) -> None:
+        import torch
+
+        torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(self.array.ctypes.data))
+        self.array = None  # back to the host pool, or unmapped, with its last view
+
+
+class _PinnedPool:
+    """The process's page-locked input buffer, leased to one input at a
+    time and kept between indexes. It grows only when a larger input
+    arrives, so the pinning (0.2-0.25 s for 850 MB on an H100 host) is paid
+    once and not on every index. The indexes of a process run one after
+    another: a second lease before the first is given back is an error."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._buf: Optional[_Pinned] = None
+        self._leased = False
+
+    def lease(self, size: int) -> _Pinned:
+        with self._lock:
+            if self._leased:
+                raise RuntimeError("the page-locked input buffer is leased to another "
+                                   "streaming input; release that one first")
+            if self._buf is None or self._buf.size < size:
+                if self._buf is not None:
+                    self._buf.free()
+                    self._buf = None
+                self._buf = _Pinned(size)
+            self._leased = True
+            return self._buf
+
+    def give_back(self) -> None:
+        with self._lock:
+            self._leased = False
+
+
+PINNED = _PinnedPool()
+
+
 class StreamingInput:
-    """Background O_DIRECT read of a plain FASTA file into one pooled buffer.
+    """Background O_DIRECT read of a plain FASTA file into one buffer.
 
     The segment scan chases the reader (``wait_until(pos)`` blocks until
     ``pos`` bytes are resident) and the input sha256 chases it too, so the
     disk read, the input hash, the decode and the uploads overlap. Both
-    threads run at nice+10 so the dispatch thread wins the cores."""
+    threads run at nice+10 so the dispatch thread wins the cores.
 
-    def __init__(self, path: str, extent: int = 64 << 20):
+    The buffer is a pooled host block, or, where ``card`` names a CUDA
+    device the segments are copied to, the process's page-locked buffer
+    (:data:`PINNED`). :meth:`release` stops the threads and gives the buffer
+    back; the page-locked one only once ``card`` has finished its copies."""
+
+    def __init__(self, path: str, extent: int = 64 << 20, card=None):
         self.size = os.path.getsize(path)
-        self.buf = big_empty(max(self.size, 1))[: self.size]
+        self._card = card
+        self._pinned = PINNED.lease(self.size) if card is not None else None
+        self.buf = (self._pinned.array if self._pinned is not None
+                    else big_empty(max(self.size, 1)))[: self.size]
         self._path = path
         self._extent = extent
         self._cond = threading.Condition()
         self._filled = 0
         self._exc: Optional[BaseException] = None
+        self._stop = False
         self._sha_hex: Optional[str] = None
-        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader = threading.Thread(target=self._read, daemon=True, name="input-read")
         self._reader.start()
-        self._hasher = threading.Thread(target=self._hash, daemon=True)
+        # its spans record under the span open here
+        self._hasher = threading.Thread(target=carry(self._hash), daemon=True,
+                                        name="input-hash")
         self._hasher.start()
 
     def _read(self) -> None:
@@ -97,6 +166,8 @@ class StreamingInput:
             with direct.DirectReader(self._path) as rd:
                 pos = 0
                 while pos < self.size:
+                    if self._stop:
+                        raise RuntimeError(f"{self._path}: input released mid-read")
                     hi = min(self.size, pos + self._extent)
                     got = direct.pread_into_mt(
                         rd, self.buf[pos:hi], pos, threads=2, chunk=32 << 20
@@ -122,7 +193,10 @@ class StreamingInput:
                 self.wait_until(hi)
             except BaseException:
                 return  # the reader failed; wait_until reports it to the pipeline
-            h.update(self.buf[pos:hi])
+            if self._stop:
+                return
+            with span("input sha256", bytes=hi - pos):
+                h.update(self.buf[pos:hi])
             pos = hi
         self._sha_hex = h.hexdigest()
 
@@ -143,6 +217,23 @@ class StreamingInput:
             self.wait_until(self.size)  # raises the reader's error
             raise RuntimeError(f"{self._path}: input hash thread died")
         return self._sha_hex
+
+    def release(self) -> None:
+        """Stop the reader and the hasher (each ends at its next extent),
+        then give the buffer back; ``buf`` is not to be read after this.
+        A second call does nothing."""
+        if self.buf is None:
+            return
+        self._stop = True
+        self._reader.join()
+        self._hasher.join()
+        if self._pinned is not None:
+            import torch
+
+            torch.cuda.synchronize(self._card)  # no copy from the buffer in flight
+            PINNED.give_back()
+            self._pinned = None
+        self.buf = None
 
 
 def iter_segments_streaming(

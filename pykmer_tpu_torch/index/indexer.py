@@ -12,8 +12,11 @@ keys-only sort, valid-window count). Two strategies apply the sorted codes:
 
 On the device strategy the input is pipelined: a plain file streams from disk
 while it is hashed, decoded segment by segment and uploaded
-(``host/pipeline.py``); compressed files and stdin are read whole and then
-pipelined. The host strategy decodes the whole input first. Uploads go through
+(``host/pipeline.py``); on a CUDA device it streams into page-locked memory,
+each segment's raw bytes go to the card, and the card decodes them
+(``iter_card_chunks``, ``ops/fasta.py``). Compressed files and stdin are read
+whole and then pipelined with the host decode. The host strategy decodes the
+whole input first. Uploads go through
 a ring of pinned staging buffers. The chased readback tail
 (``ops/readback.py``) then copies, unfolds, writes and hashes the plane in the
 mode ``IndexConfig.readback`` resolves to (:func:`readback_mode`,
@@ -25,6 +28,7 @@ files are the JAX package's, byte for byte, in every mode.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import sys
@@ -45,7 +49,7 @@ from ..utils.profiling import StageTimer, device_trace, span
 from .. import resolve_device
 from ..host.chunks import chunk_stream, iter_chunks_packed_lazy
 from ..host.decode import decode_joined_bytes
-from ..host.pipeline import iter_pipelined_chunks
+from ..host.pipeline import iter_card_chunks, iter_pipelined_chunks
 from ..host.segments import StreamingInput
 from ..ops.encode import canonical_codes_packed
 from ..ops import packing
@@ -132,6 +136,8 @@ def create_fasta_index(
     plain = input_file is not None and not input_file.endswith((".gz", ".bgz"))
     streaming = (strategy == "device" and have_native and plain
                  and os.path.getsize(input_file) > 0)
+    # a streaming input to a card is decoded there
+    card = streaming and device.type == "cuda"
 
     stages = StageTimer()
     timer = header.timer
@@ -139,12 +145,14 @@ def create_fasta_index(
     tmp = header.index_tmp_file
     # a torch.profiler trace of the pipeline, with the worker threads'
     # spans, when PYKMER_TPU_TRACE_DIR is set; no-op otherwise
-    with device_trace(stages=stages), ThreadPoolExecutor(1) as hash_pool:
+    with device_trace(stages=stages), ThreadPoolExecutor(1) as hash_pool, \
+            contextlib.ExitStack() as held:
         if streaming:
             # the reader and input-hash threads start here; decode and
             # uploads chase them
             with stages.stage("input read"):
-                data = StreamingInput(input_file)
+                data = StreamingInput(input_file, card=device if card else None)
+            held.callback(data.release)  # on an error too: the buffer is the pool's
             input_ck = None
             pipelined = True
         else:
@@ -160,8 +168,9 @@ def create_fasta_index(
         if pipelined:
             sink: dict = {}
             with stages.stage("decode + accumulate (pipelined)"):
-                plane, num_kmers = accumulate_device(
-                    iter_pipelined_chunks(data, kmer_len, cw, sink), kmer_len, cw, device)
+                chunks = iter_card_chunks(data, kmer_len, cw, sink, device) if card \
+                    else iter_pipelined_chunks(data, kmer_len, cw, sink)
+                plane, num_kmers = accumulate_device(chunks, kmer_len, cw, device)
             chromosomes, total_bp = sink["chromosomes"], sink["total_bp"]
         else:
             with stages.stage("fasta decode + join"):
@@ -180,12 +189,11 @@ def create_fasta_index(
             del chunks, padded, stream
         if num_kmers == 0:
             raise ValueError(f"{input_file}: no valid k-mers at K={kmer_len}")
-        if streaming:
-            # all input is consumed and the hash trails the finished read:
-            # take the checksum now and release the input block to the pool
-            # before the output plane allocates
-            input_hex = data.input_checksum()
-        del data
+        if not streaming:
+            # release the input before the output plane allocates; a
+            # streaming input is still being hashed, and stays until the
+            # metadata takes its checksum
+            del data
         if verbose:
             print(f"  records {len(chromosomes):7,d} bp {total_bp:15,d}")
         if total_bp >= PRINT_EVERY:
@@ -219,6 +227,11 @@ def create_fasta_index(
         # (its non-canonical partner) to the full plane's histogram
         counts[0] += data_size // 2
         with stages.stage("metadata"):
+            if streaming:
+                # the input hash trails the read and runs beside the tail
+                with span("input hash wait"):
+                    input_hex = data.input_checksum()
+                data.release()
             header.write_metadata(
                 tmp,
                 stats_counts256=counts,
@@ -318,7 +331,8 @@ class ChunkUploader:
     the host stages the next chunk while the card copies and computes. An event
     recorded after a slot's copies guards the slot: it is refilled only once
     that event has completed. On the CPU the chunk's arrays are wrapped
-    without a copy."""
+    without a copy. Chunks that are tensors already (the card decode's views,
+    ``host/pipeline.iter_card_chunks``) pass through."""
 
     def __init__(self, device: torch.device, kmer_len: int, chunk_windows: int):
         self.device = device
@@ -336,6 +350,8 @@ class ChunkUploader:
     def __call__(
         self, bases2: np.ndarray, maskbits: Optional[np.ndarray]
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if isinstance(bases2, torch.Tensor):
+            return bases2, maskbits
         if not self.slots:
             return (torch.from_numpy(bases2),
                     None if maskbits is None else torch.from_numpy(maskbits))

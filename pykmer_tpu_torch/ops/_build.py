@@ -85,6 +85,20 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn = getattr(lib, stem + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    untyped = {
+        # (raw, n, K, workspace, totals, stream)
+        "pykmer_fasta_scan": [ptr, i64, i64, ptr, ptr, ptr],
+        # (raw, n, K, workspace, bases, bytes, mask, bytes, n_codes, n_recs,
+        #  name_off, name_end, rec_start, has_valid, stream)
+        "pykmer_fasta_write": [ptr, i64, i64, ptr, ptr, i64, ptr, i64, i64, i64,
+                               ptr, ptr, ptr, ptr, ptr],
+    }
+    for name, argtypes in untyped.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pykmer_fasta_workspace.argtypes = [i64]
+    lib.pykmer_fasta_workspace.restype = i64
 
 
 def _compile_and_link(srcs, so: str) -> str:

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from fasta_cases import CASES, case_bytes
+
 from pykmer_tpu_torch.config import IndexConfig
 from pykmer_tpu_torch import create_fasta_index
 from pykmer_tpu_torch.host.chunks import pack_base_stream
-from pykmer_tpu_torch.ops import encode, sweep
+from pykmer_tpu_torch.ops import encode, fasta as fasta_ops, sweep
 from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
 
 pytestmark = pytest.mark.cuda
@@ -693,3 +695,126 @@ def test_cli_index_on_a_named_card_in_a_new_process(cuda, tmp_path, extra):
         env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert os.path.exists(fasta + ".09.kin")
+
+
+# ---- the FASTA decode kernel (csrc/fasta.cu) --------------------------------
+
+FASTA_HEADROOM = (1 << 16) + 15 + 8
+
+
+def _decode_vs_plain(raw_cpu, raw_dev, kmer_len):
+    """The kernel's decode of ``raw_dev`` equals the plain decode of
+    ``raw_cpu`` and, for the planes and n_codes, the native decoder's."""
+    from pykmer_tpu_torch.io import native
+
+    want = fasta_ops.decode_packed(raw_cpu, kmer_len, FASTA_HEADROOM)
+    before = fasta_ops.LAUNCHES
+    got = fasta_ops.decode_packed(raw_dev, kmer_len, FASTA_HEADROOM)
+    torch.cuda.synchronize()
+    assert fasta_ops.LAUNCHES == before + 1
+    assert got.bases.device == raw_dev.device and got.n_codes == want.n_codes
+    for field in ("bases", "mask", "name_off", "name_len", "seq_len", "has_valid"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+    bases, mask, n_codes, _, _ = native.fasta_decode_joined_packed_native(
+        raw_cpu.numpy(), kmer_len, threads=2, tail_headroom=FASTA_HEADROOM)
+    assert n_codes == got.n_codes
+    assert torch.equal(got.bases.cpu(), torch.from_numpy(bases))
+    assert torch.equal(got.mask.cpu(), torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fasta_kernel_matches_plain(cuda, case):
+    data = case_bytes(case)
+    raw = torch.frombuffer(bytearray(data), dtype=torch.uint8) if data \
+        else torch.zeros(0, dtype=torch.uint8)
+    for kmer_len in (1, 5, 15, 31):
+        _decode_vs_plain(raw, raw.to(cuda), kmer_len)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 13])
+def test_fasta_kernel_unaligned_view(cuda, offset):
+    """A segment that starts off a 16-byte boundary takes the byte loads."""
+    data = case_bytes("fuzz_2")
+    raw = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    dev = torch.zeros(raw.shape[0] + offset, dtype=torch.uint8, device=cuda)
+    dev[offset:] = raw.to(cuda)
+    _decode_vs_plain(raw, dev[offset:], 15)
+
+
+def test_fasta_kernel_on_a_seeded_genome(cuda, tmp_path):
+    """The benchmark's genome recipe (kbench/genome.py) at 40 Mbp in 3
+    records, cut into record-aligned segments: every segment's decode on the
+    card equals the plain one."""
+    from kbench import genome
+    from pykmer_tpu_torch.host.segments import segment_record_bounds
+
+    path = str(tmp_path / "g.fa")
+    genome.make_genome(path, (1 << 31) + 77, genome_bp=40_000_000, records=3,
+                       repeat_cover=0.65, max_divergence=0.2, n_bases=2_000_000, n_runs=5)
+    buf = np.fromfile(path, dtype=np.uint8)
+    bounds = segment_record_bounds(buf, 16 << 20)
+    assert len(bounds) == 3
+    for lo, hi in bounds:
+        raw = torch.from_numpy(buf[lo:hi])
+        _decode_vs_plain(raw, raw.to(cuda), 15)
+
+
+def test_streaming_index_decodes_on_card(cuda, tmp_path, monkeypatch):
+    """K=11 on the card, the streaming input in several segments: every
+    segment is decoded on the card (one "card decode" span and one decode a
+    segment, no host "decode"), the page-locked buffer is kept for the next
+    index, and the files equal the gzip copy's, which the host decodes."""
+    import functools
+
+    from pykmer_tpu_torch.host import segments
+    from pykmer_tpu_torch.index import indexer
+    from pykmer_tpu_torch.utils import profiling
+
+    fasta = _genome(str(tmp_path / "c.fa"), np.random.default_rng(6), n_records=40,
+                    length=20_000)
+    gz = str(tmp_path / "c2.fa.gz")
+    with open(fasta, "rb") as src, gzip.open(gz, "wb") as dst:
+        dst.write(src.read())
+    monkeypatch.setattr(indexer, "iter_card_chunks", functools.partial(
+        indexer.iter_card_chunks, target_segment=100_000))
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 16)
+    fasta_ops.LAUNCHES = 0
+    header = create_fasta_index(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                device=cuda)
+    chromosomes = header.chromosomes
+    card = _kin(header)
+    spans = profiling.FINISHED_RUNS[-1].spans
+    decodes = [s for s in spans if s.name == "card decode"]
+    assert len(decodes) == fasta_ops.LAUNCHES > 3
+    assert sum(s.counts["bytes"] for s in decodes) == os.path.getsize(fasta)
+    assert sum(s.counts["records"] for s in decodes) == 40
+    assert not [s for s in spans if s.name == "decode"]
+    assert sum(s.counts["bytes"] for s in spans if s.name == "input sha256") \
+        == os.path.getsize(fasta)
+    kept = segments.PINNED._buf
+    assert kept is not None and not segments.PINNED._leased
+    again = _kin(create_fasta_index(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                    device=cuda))
+    assert segments.PINNED._buf is kept
+    header = create_fasta_index(gz, "s", gz, 11, config=cfg, verbose=False, device=cuda)
+    assert header.chromosomes == chromosomes and len(chromosomes) == 40
+    assert card == again == _kin(header)
+
+
+def test_pinned_pool_refuses_a_second_lease(cuda, tmp_path):
+    """The page-locked buffer serves one streaming input at a time: a second
+    input before the first is released is refused, and once it is released
+    the next input reuses the same buffer."""
+    from pykmer_tpu_torch.host import segments
+
+    path = _genome(str(tmp_path / "p.fa"), np.random.default_rng(8), n_records=4)
+    first = segments.StreamingInput(path, card=cuda)
+    with pytest.raises(RuntimeError, match="leased"):
+        segments.StreamingInput(path, card=cuda)
+    first.input_checksum()
+    pooled = first._pinned
+    first.release()
+    again = segments.StreamingInput(path, card=cuda)
+    assert again._pinned is pooled
+    again.release()

@@ -29,8 +29,9 @@ K = 9
 # the table the pipelined raw index prints, row by row
 STAGE_ROWS = ["input read", "decode + accumulate (pipelined)", "output alloc",
               "copy + unfold", "write + hash drain", "metadata", "verify"]
-DISPATCH_SPANS = {"decode queue wait", "unfold", "write drain wait", "hash drain wait"}
-WORKER_SPANS = {"decode", "input wait", "sha256", "pwrite"}
+DISPATCH_SPANS = {"decode queue wait", "unfold", "write drain wait", "hash drain wait",
+                  "input hash wait"}
+WORKER_SPANS = {"decode", "input wait", "sha256", "pwrite", "input sha256"}
 
 
 @pytest.fixture
@@ -96,6 +97,7 @@ def test_one_index_records_every_thread_as_one_run(tmp_path, monkeypatch, finish
     assert by_thread["decode"] == by_thread["input wait"] == {"decode"}
     assert all(t.startswith("chase-hash") for t in by_thread["sha256"])
     assert all(t.startswith("chase-write") for t in by_thread["pwrite"])
+    assert by_thread["input sha256"] == {"input-hash"}
     # the main thread's spans are the ones the profiler sees
     assert all(s.traced == (s.thread == me) for s in spans)
     # the printed table is the parent's: its stages, in order, and no sub-span
@@ -174,7 +176,7 @@ def test_trace_dir_writes_one_trace_with_every_thread(tmp_path, monkeypatch, fin
     assert all(e["tid"] != main_tid and e["pid"] == os.getpid() for e in workers)
     assert {rows[e["tid"]] for e in workers if e["name"] == "decode"} == {"decode"}
     assert {rows[e["tid"]].split("_")[0] for e in workers} == {"decode", "chase-hash",
-                                                                "chase-write"}
+                                                                "chase-write", "input-hash"}
     # the workers' spans lie inside the index, on the trace's clock
     stage = {e["name"]: e for e in marks}
     lo, hi = stage["input read"]["ts"], stage["verify"]["ts"] + stage["verify"]["dur"]
@@ -241,3 +243,44 @@ def test_carry_binds_a_worker_to_the_span_open_at_submission(monkeypatch, finish
     assert not inner.traced and outer.traced
     timer.finish()
     assert list(finished) == [timer]
+
+
+def test_the_input_hash_counts_the_input_and_is_joined_at_metadata(tmp_path, monkeypatch,
+                                                                   finished):
+    """The streaming input's sha256 runs on its own thread ("input sha256"
+    spans, one an update, their bytes the input's size) and is joined in the
+    metadata stage ("input hash wait")."""
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    _, timer = _index(tmp_path, monkeypatch)
+    hashed = [s for s in timer.spans if s.name == "input sha256"]
+    assert hashed and {s.thread for s in hashed} == {"input-hash"}
+    assert sum(s.counts["bytes"] for s in hashed) == os.path.getsize(str(tmp_path / "g.fa"))
+    assert all(s.parent.name == "input read" for s in hashed)
+    wait, = [s for s in timer.spans if s.name == "input hash wait"]
+    assert wait.parent.name == "metadata"
+
+
+def test_the_card_path_counts_its_segments(tmp_path, finished, monkeypatch):
+    """The card path's pipeline (the plain decode on the CPU) records one
+    "card decode" a segment on the dispatch thread, whose bytes sum to the
+    input's size and records to its records, and no host "decode"."""
+    from pykmer_tpu_torch.host import pipeline
+    from pykmer_tpu_torch.host.segments import StreamingInput
+
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    fasta = make_random_fasta(str(tmp_path / "c.fa"), np.random.default_rng(19),
+                              n_records=30, lengths=(5000, 1333, 670))
+    timer = profiling.StageTimer()
+    with timer.stage("decode + accumulate (pipelined)"):
+        data = StreamingInput(fasta)
+        sink = {}
+        chunks = list(pipeline.iter_card_chunks(data, K, 4096, sink, torch.device("cpu"),
+                                                target_segment=15000))
+        data.release()
+    assert chunks and len(sink["chromosomes"]) == 30
+    decodes = [s for s in timer.spans if s.name == "card decode"]
+    assert len(decodes) > 3 and {s.thread for s in decodes} == {threading.current_thread().name}
+    assert sum(s.counts["bytes"] for s in decodes) == os.path.getsize(fasta)
+    assert sum(s.counts["records"] for s in decodes) == 30
+    names = {s.name for s in timer.spans}
+    assert "decode" not in names and "decode queue wait" in names
