@@ -28,6 +28,7 @@ files are the JAX package's, byte for byte, in every mode.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import os
@@ -69,6 +70,10 @@ PIECES_MIN_CELLS = 1 << 30
 # K at which readback="auto" on CUDA follows the JAX package's choice
 # (readback_mode); everywhere else auto reads back raw
 AUTO_JAX_RULE_K = frozenset({17})
+# the readback tails this process's indexes took, by name: "raw", "2bit",
+# "3bit", "packed", "sparse" or "pieces" (the arena-free tail); a program
+# counter, as the kernels' LAUNCHES
+TAILS: collections.Counter = collections.Counter()
 
 
 def _have_native() -> bool:
@@ -209,12 +214,15 @@ def create_fasta_index(
             with stages.stage("escape counts"):
                 escapes = packing.count_all_escapes(plane)
         mode = packing.pick_mode(plane, data_size // 2, mode, escapes)
+        tail = mode
         if mode == "sparse" and data_size // 2 > PIECES_MIN_CELLS:
             # no 4^K host array: each segment's pieces are written and hashed
             with DirectWriter(tmp, size=data_size) as fd:
                 res = stream_sparse_pieces(plane, kmer_len, fd, tmp, escapes, stages=stages)
             if res is not None:
                 counts, output_ck = res
+                tail = "pieces"
+        TAILS[tail] += 1
         if counts is None:
             with stages.stage("output alloc"):
                 out = big_empty(data_size)

@@ -304,10 +304,11 @@ class PieceSink:
     primary belongs at file offset ``lo``, mirror at ``full - hi``. It queues
     both writes and the primary's hash update (one hasher thread, so the
     updates stay in order); the futures keep the buffers alive until they
-    land, and at most ``PIECES_IN_FLIGHT`` pieces are queued. The second
-    half's file order is the reverse of completion order, so :meth:`finish`
-    hashes it by reading the written file back, reading each chunk while the
-    one before it is hashed."""
+    land, and at most ``PIECES_IN_FLIGHT`` pieces are queued (a wait for the
+    oldest is a "piece queue wait" span). The second half's file order is
+    the reverse of completion order, so :meth:`finish` hashes it by reading
+    the written file back, reading each chunk (a "mirror read" span, on the
+    reader's thread) while the one before it is hashed."""
 
     def __init__(self, fd, path: str, full: int):
         self.fd = fd
@@ -330,9 +331,11 @@ class PieceSink:
             self.hasher.submit(carry(_spanned_update), self.h, primary[:n]),
         ])
         self.expected = hi
-        while len(self._pieces) > PIECES_IN_FLIGHT:
-            for f in self._pieces.popleft():
-                f.result()
+        if len(self._pieces) > PIECES_IN_FLIGHT:
+            with span("piece queue wait"):
+                while len(self._pieces) > PIECES_IN_FLIGHT:
+                    for f in self._pieces.popleft():
+                        f.result()
 
     def finish(self) -> str:
         """Wait for every write (re-raising a failure), then hash the second
@@ -348,11 +351,13 @@ class PieceSink:
         bufs = [big_empty(min(MIRROR_READ_CELLS, half)) for _ in range(2)]
         with DirectReader(self.path) as reader, ThreadPoolExecutor(1) as pre:
 
+            @carry
             def read(i: int) -> np.ndarray:
                 lo, hi = bounds[i]
                 buf = bufs[i % 2][: hi - lo]
-                if pread_into_mt(reader, buf, half + lo) != hi - lo:
-                    raise OSError(f"short read of {self.path} at {half + lo}")
+                with span("mirror read", bytes=hi - lo):
+                    if pread_into_mt(reader, buf, half + lo) != hi - lo:
+                        raise OSError(f"short read of {self.path} at {half + lo}")
                 return buf
 
             nxt = pre.submit(read, 0)
@@ -659,7 +664,13 @@ def _segment_reads(plane: torch.Tensor, fallbacks: List[float]) -> Iterator[tupl
     for lo, hi in _slice_bounds(plane.shape[0], packing.SPARSE_SEG_CELLS):
         seg = plane[lo:hi]
         cap = packing.sparse_cap(hi - lo)
-        tok, side, escpos, (n_nz, _, _) = packing.pack_sparse_segment(seg, cap)
+        with span("sparse pack", cells=hi - lo, tokens=0, bytes=0) as counts:
+            tok, side, escpos, (n_nz, _, _) = packing.pack_sparse_segment(seg, cap)
+            if n_nz <= cap:
+                vals = seg[escpos.to(torch.int64)]
+                host = tuple(t.cpu().numpy() for t in (tok, side, escpos, vals))
+                counts["tokens"] = host[0].shape[0]
+                counts["bytes"] = sum(a.nbytes for a in host)
         if n_nz > cap:
             t0 = time.perf_counter()
             with span("2-bit fallback", cells=hi - lo):
@@ -667,13 +678,12 @@ def _segment_reads(plane: torch.Tensor, fallbacks: List[float]) -> Iterator[tupl
             fallbacks.append(time.perf_counter() - t0)
             yield lo, hi, folded
         else:
-            vals = seg[escpos.to(torch.int64)]
-            yield lo, hi, tuple(t.cpu().numpy() for t in (tok, side, escpos, vals))
+            yield lo, hi, host
 
 
 def _decode_in_order(
     plane: torch.Tensor, decode: Callable, emit: Callable[..., np.ndarray],
-    stages: StageTimer, label: str,
+    stages: StageTimer, label: str, wait: str,
 ) -> np.ndarray:
     """Read each segment of ``plane`` (:func:`_segment_reads`) and run
     ``decode(lo, hi, item)`` on ``DECODE_THREADS`` host threads while the
@@ -681,25 +691,32 @@ def _decode_in_order(
     thread in segment order and returns the segment's 256-bin counts, which
     are summed. ``stages`` receives the loop as ``label`` and the segments
     read through the 2-bit plane as a "2-bit fallback" entry: rows of the
-    loop less the fallbacks, and of the fallbacks; its spans are the loop's
-    and each fallback's."""
+    loop less the fallbacks, and of the fallbacks; its spans are the loop's,
+    each segment's "sparse pack" and each fallback's, the decodes' (on the
+    pool's threads, under the loop) and each wait for a decode (``wait``)."""
     fallbacks: List[float] = []
     pending: collections.deque = collections.deque()
     counts = np.zeros(256, dtype=np.int64)
     n_segs = 0
     t0 = time.perf_counter()
+
+    def result(fut):
+        with span(wait):
+            return fut.result()
+
     with stages.span(label), ThreadPoolExecutor(DECODE_THREADS) as pool:
         try:
+            run = carry(decode)
             for lo, hi, item in _segment_reads(plane, fallbacks):
                 n_segs += 1
-                pending.append((lo, hi, pool.submit(decode, lo, hi, item)))
+                pending.append((lo, hi, pool.submit(run, lo, hi, item)))
                 while pending and (not SPARSE_OVERLAP or pending[0][2].done()
                                    or len(pending) > DECODE_THREADS):
                     lo_, hi_, fut = pending.popleft()
-                    counts += emit(lo_, hi_, fut.result())
+                    counts += emit(lo_, hi_, result(fut))
             while pending:
                 lo_, hi_, fut = pending.popleft()
-                counts += emit(lo_, hi_, fut.result())
+                counts += emit(lo_, hi_, result(fut))
         except BaseException:
             for _, _, fut in pending:
                 fut.cancel()
@@ -735,7 +752,8 @@ def _sparse_to_out(plane: torch.Tensor, kmer_len: int, out: np.ndarray,
         sink.region_done(lo, hi)
         return counts
 
-    return _decode_in_order(plane, decode, emit, stages, "copy + decode (sparse)")
+    return _decode_in_order(plane, decode, emit, stages, "copy + decode (sparse)",
+                            "sparse decode wait")
 
 
 def stream_sparse_pieces(
@@ -757,7 +775,9 @@ def stream_sparse_pieces(
     where the JAX package asks it of each 2^30-cell sub-plane. ``stages``
     receives the segment loop, any "2-bit
     fallback", and "write drain + mirror hash" (the writes still queued,
-    then the second half re-read and hashed). Port of
+    then the second half re-read and hashed); each segment's decode is a
+    "piece decode" span on the decode pool, and the loop's wait for it a
+    "piece decode wait". Port of
     ``pykmer_tpu/ops/readback.py::stream_sparse_planes_pieces``, over the
     flat plane's segments instead of 2^30-cell sub-planes."""
     size = plane.shape[0]
@@ -771,20 +791,22 @@ def stream_sparse_pieces(
 
     def decode(lo: int, hi: int, item):
         n = hi - lo
-        if isinstance(item, np.ndarray):  # read through the 2-bit plane
-            primary, mirror, _ = unfold_piece(item, kmer_len, lo)
-            return fast_counts256(item), primary, mirror
-        tok, side, escpos, vals = item
-        primary, mirror = big_empty(n), big_empty(n)
-        counts = sparse_decode_segment_piece_native(tok, side, primary, mirror, kmer_len,
-                                                    lo, n)
-        counts[0] += n - tok.shape[0]
-        if escpos.shape[0]:
-            u = escpos.astype(np.int64) + lo
-            canon = u.astype(np.uint64) <= _rc_codes_np(u, kmer_len)
-            primary[escpos[canon]] = vals[canon]
-            mirror[n - 1 - escpos[~canon]] = vals[~canon]
-        return _patch_counts(counts, vals, packing.ESCAPE2), primary, mirror
+        dense = isinstance(item, np.ndarray)  # read through the 2-bit plane
+        with span("piece decode", cells=n, tokens=0 if dense else item[0].shape[0]):
+            if dense:
+                primary, mirror, _ = unfold_piece(item, kmer_len, lo)
+                return fast_counts256(item), primary, mirror
+            tok, side, escpos, vals = item
+            primary, mirror = big_empty(n), big_empty(n)
+            counts = sparse_decode_segment_piece_native(tok, side, primary, mirror,
+                                                        kmer_len, lo, n)
+            counts[0] += n - tok.shape[0]
+            if escpos.shape[0]:
+                u = escpos.astype(np.int64) + lo
+                canon = u.astype(np.uint64) <= _rc_codes_np(u, kmer_len)
+                primary[escpos[canon]] = vals[canon]
+                mirror[n - 1 - escpos[~canon]] = vals[~canon]
+            return _patch_counts(counts, vals, packing.ESCAPE2), primary, mirror
 
     sink = PieceSink(fd, path, 2 * size)
 
@@ -794,7 +816,8 @@ def stream_sparse_pieces(
         return counts
 
     try:
-        counts = _decode_in_order(plane, decode, emit, stages, "copy + decode (pieces)")
+        counts = _decode_in_order(plane, decode, emit, stages, "copy + decode (pieces)",
+                                  "piece decode wait")
         with stages.stage("write drain + mirror hash"):
             return counts, sink.finish()
     except BaseException:

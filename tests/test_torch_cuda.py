@@ -818,3 +818,43 @@ def test_pinned_pool_refuses_a_second_lease(cuda, tmp_path):
     again = segments.StreamingInput(path, card=cuda)
     assert again._pinned is pooled
     again.release()
+
+
+def test_streaming_k17_index_takes_the_pieces_tail(cuda, tmp_path, monkeypatch):
+    """A streaming K=17 index of a small genome of the benchmark's recipe,
+    readback "auto": it takes the arena-free pieces tail (the counter and
+    the stage table say so, and its spans count the whole plane), and its `.kin`
+    and `.kin.json` equal the benchmark's blocked plain reference, counted
+    on the card."""
+    import json
+
+    from kbench import genome
+    from kbench.reference import index as ref
+    from kbench.reference import index_blocked
+    from pykmer_tpu_torch.index import indexer
+    from pykmer_tpu_torch.utils import profiling
+
+    path = str(tmp_path / "g.fa")
+    records = genome.make_genome(path, (1 << 31) + 171, genome_bp=20_000_000, records=3,
+                                 repeat_cover=0.65, max_divergence=0.2, n_bases=1_000_000,
+                                 n_runs=5)
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    before = indexer.TAILS["pieces"]
+    create_fasta_index(path, "s", path, 17, verbose=False, device=cuda)
+    run = profiling.FINISHED_RUNS[-1]
+    assert indexer.TAILS["pieces"] == before + 1
+    assert any(name == "copy + decode (pieces)" for name, _ in run.stages)
+    half = 4**17 // 2
+    for name, key in (("sparse pack", "cells"), ("piece decode", "cells"),
+                      ("mirror read", "bytes")):
+        assert sum(s.counts[key] for s in run.spans if s.name == name) == half, name
+    assert sum(s.counts["bytes"] for s in run.spans if s.name == "sha256") == 2 * half
+    kin = path + ".17.kin"
+    expected, wrong, _ = index_blocked.judge(records, 17, cuda, ref.sha256_file(path),
+                                             kin_paths=[kin])
+    with open(kin + ".json") as fh:
+        meta = json.load(fh)
+    os.remove(kin)
+    assert wrong == [0] and ref.fields_wrong(meta, expected) == []
+    assert expected["num_kmers"] == genome.valid_windows(
+        genome_bp=20_000_000, records=3, n_bases=1_000_000, n_runs=5, kmer_len=17)
