@@ -22,8 +22,11 @@ a ring of pinned staging buffers. The chased readback tail
 mode ``IndexConfig.readback`` resolves to (:func:`readback_mode`,
 ``ops/packing.pick_mode``): raw, a fixed-width pack with escape patches, the
 sparse token stream, or, for a sparse plane above ``PIECES_MIN_CELLS``, the
-arena-free pieces tail. A verify pass re-reads the written file's stats. The
-files are the JAX package's, byte for byte, in every mode.
+arena-free pieces tail. The verify re-reads the written file by O_DIRECT and
+counts it (``index/verify.py``), starting as soon as the tail's writes have
+landed, beside the output hash, and compares its stats with the in-memory
+ones before the rename. The files are the JAX package's, byte for byte, in
+every mode.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 
 from ..config import MAX_VAL, IndexConfig, resolve_chunk_windows, resolve_strategy
 from ..formats import kin as kinfmt
-from ..formats.header import KinHeader
+from ..formats.header import KinHeader, stats_from_counts256
 from ..io.direct import DirectWriter
 from ..io.fasta import open_input_bytes
 from ..utils.bigmem import big_empty, big_zeros
@@ -57,6 +60,7 @@ from ..ops import packing
 from ..ops.histogram import sort_codes_fast
 from ..ops.readback import stream_plane_to_out, stream_sparse_pieces
 from ..ops.sweep import accumulate_sorted
+from .verify import FileVerifier
 
 PRINT_EVERY = 25_000_000  # progress cadence in bp (as the JAX package)
 # folded planes up to this many cells sort int32 codes, larger ones int64
@@ -215,10 +219,15 @@ def create_fasta_index(
                 escapes = packing.count_all_escapes(plane)
         mode = packing.pick_mode(plane, data_size // 2, mode, escapes)
         tail = mode
+        # the tail's sink starts it once the file's writes have landed
+        verifier = FileVerifier(tmp, data_size) if verify else None
+        if verifier is not None:
+            held.callback(verifier.close)  # on an error: no read outlives the index
         if mode == "sparse" and data_size // 2 > PIECES_MIN_CELLS:
             # no 4^K host array: each segment's pieces are written and hashed
             with DirectWriter(tmp, size=data_size) as fd:
-                res = stream_sparse_pieces(plane, kmer_len, fd, tmp, escapes, stages=stages)
+                res = stream_sparse_pieces(plane, kmer_len, fd, tmp, escapes, stages=stages,
+                                           verifier=verifier)
             if res is not None:
                 counts, output_ck = res
                 tail = "pieces"
@@ -228,7 +237,8 @@ def create_fasta_index(
                 out = big_empty(data_size)
             with DirectWriter(tmp, size=data_size) as fd:
                 counts, output_ck = stream_plane_to_out(plane, kmer_len, out, fd,
-                                                        stages=stages, mode=mode)
+                                                        stages=stages, mode=mode,
+                                                        verifier=verifier)
             del out
         del plane
         # each folded cell adds its value plus exactly one structural zero
@@ -247,13 +257,12 @@ def create_fasta_index(
                 output_checksum=output_ck,
             )
 
-        if verify:
+        if verifier is not None:
             # the end-to-end invariant: stats derived from the written file
             # must equal the in-memory ones
             with stages.stage("verify"):
-                fresh = KinHeader(project_name, input_file=name_stem, kmer_len=kmer_len)
-                fresh.update_stats_from_file(tmp)
-                if fresh.hist != header.hist or fresh.vals_sum != header.vals_sum:
+                fresh = stats_from_counts256(verifier.result())
+                if fresh["hist"] != header.hist or fresh["vals_sum"] != header.vals_sum:
                     raise AssertionError("written .kin does not match computed stats")
 
     os.rename(tmp, header.index_file_root)

@@ -31,6 +31,10 @@ ops and the choice, ``pick_mode``):
 written and hashed directly, so the 4^K host array never exists; the mirror
 half is hashed by reading the written file back.
 
+Both sinks take the index's verifier (``index/verify.FileVerifier``) and
+start it once the file's writes have landed, so the verify's re-read of the
+file runs beside the hash that paces the tail.
+
 :func:`plane_to_host` copies the folded plane (or the interleave) into a host
 array through the same slices, for the multi-host build's combine;
 :func:`fetch_dense` does so in any mode.
@@ -271,9 +275,11 @@ class ChaseSink:
         self._futs.append(self.hasher.submit(carry(_spanned_update), self.h, self.out[lo:hi]))
         self.expected = hi
 
-    def finish(self) -> str:
+    def finish(self, verifier=None) -> str:
         """Wait for every write (re-raising a failure) and return the sha256
-        of the whole of ``out``."""
+        of the whole of ``out``. A ``verifier`` (``index/verify.FileVerifier``)
+        starts reading the whole file back once the writes have landed, while
+        the hash drains."""
         if self.expected != self.full // 2:
             raise ValueError(f"regions end at {self.expected}, not {self.full // 2}")
         self._futs.append(self.hasher.submit(carry(_spanned_update), self.h,
@@ -281,6 +287,8 @@ class ChaseSink:
         if self.writers is not None:
             with span("write drain wait"):
                 self.writers.shutdown(wait=True)
+        if verifier is not None:
+            verifier.start([(0, self.full)])
         with span("hash drain wait"):
             self.hasher.shutdown(wait=True)
         for f in self._futs:
@@ -308,7 +316,9 @@ class PieceSink:
     oldest is a "piece queue wait" span). The second half's file order is
     the reverse of completion order, so :meth:`finish` hashes it by reading
     the written file back, reading each chunk (a "mirror read" span, on the
-    reader's thread) while the one before it is hashed."""
+    reader's thread) while the one before it is hashed. A verifier given to
+    :meth:`finish` reads the first half back itself and counts the second
+    half's chunks as they are read."""
 
     def __init__(self, fd, path: str, full: int):
         self.fd = fd
@@ -337,13 +347,19 @@ class PieceSink:
                     for f in self._pieces.popleft():
                         f.result()
 
-    def finish(self) -> str:
+    def finish(self, verifier=None) -> str:
         """Wait for every write (re-raising a failure), then hash the second
-        half from the file; returns the sha256 of the whole file."""
+        half from the file; returns the sha256 of the whole file. A
+        ``verifier`` (``index/verify.FileVerifier``) starts reading the first
+        half back once the writes have landed, and counts each chunk of the
+        second half after it is read and before it is hashed."""
         half = self.full // 2
         if self.expected != half:
             raise ValueError(f"pieces end at {self.expected}, not {half}")
-        self.abort()
+        self.writers.shutdown(wait=True)
+        if verifier is not None:
+            verifier.start([(0, half)])
+        self.hasher.shutdown(wait=True)
         while self._pieces:
             for f in self._pieces.popleft():
                 f.result()
@@ -358,6 +374,8 @@ class PieceSink:
                 with span("mirror read", bytes=hi - lo):
                     if pread_into_mt(reader, buf, half + lo) != hi - lo:
                         raise OSError(f"short read of {self.path} at {half + lo}")
+                if verifier is not None:
+                    verifier.count(buf, half + lo)
                 return buf
 
             nxt = pre.submit(read, 0)
@@ -526,6 +544,7 @@ def stream_plane_to_out(
     slice_cells: int = SLICE_CELLS,
     stages: Optional[StageTimer] = None,
     mode: str = "raw",
+    verifier=None,
 ) -> Tuple[np.ndarray, str]:
     """Read the flat folded ``plane`` (uint8[4^K/2], on the card or the CPU)
     back in ``mode``, unfold it into ``out`` (uint8[4^K]), write ``out`` to
@@ -541,7 +560,9 @@ def stream_plane_to_out(
     mode in its name where it is not raw; for "sparse" the segment loop and,
     where segments overflowed the token caps, a "2-bit fallback" entry) and
     what remains after it ("write + hash drain": the writes and hashes still
-    queued, then the mirror half's hash)."""
+    queued, then the mirror half's hash). A ``verifier``
+    (``index/verify.FileVerifier``) reads ``fd``'s file back from the moment
+    its writes have landed (:meth:`ChaseSink.finish`)."""
     shards = [plane] if isinstance(plane, torch.Tensor) else list(plane)
     for p in shards:
         if p.dtype != torch.uint8 or p.dim() != 1 or not p.is_contiguous():
@@ -565,7 +586,7 @@ def stream_plane_to_out(
             with stages.stage("copy + unfold" if mode == "raw" else f"copy + unfold ({mode})"):
                 counts = _slices_to_out(shards, kmer_len, out, sink, slice_cells, mode)
         with stages.stage("write + hash drain"):
-            return counts, sink.finish()
+            return counts, sink.finish(verifier)
     except BaseException:
         sink.abort()
         raise
@@ -758,7 +779,7 @@ def _sparse_to_out(plane: torch.Tensor, kmer_len: int, out: np.ndarray,
 
 def stream_sparse_pieces(
     plane: torch.Tensor, kmer_len: int, fd, path: str, escapes: Sequence[int],
-    stages: Optional[StageTimer] = None,
+    stages: Optional[StageTimer] = None, verifier=None,
 ) -> Optional[Tuple[np.ndarray, str]]:
     """Arena-free readback of the flat folded ``plane`` into the file
     ``path`` (open as ``fd``, 4^K bytes): each sparse segment decodes into
@@ -777,7 +798,8 @@ def stream_sparse_pieces(
     fallback", and "write drain + mirror hash" (the writes still queued,
     then the second half re-read and hashed); each segment's decode is a
     "piece decode" span on the decode pool, and the loop's wait for it a
-    "piece decode wait". Port of
+    "piece decode wait". A ``verifier`` reads the file back as
+    :meth:`PieceSink.finish` says. Port of
     ``pykmer_tpu/ops/readback.py::stream_sparse_planes_pieces``, over the
     flat plane's segments instead of 2^30-cell sub-planes."""
     size = plane.shape[0]
@@ -819,7 +841,7 @@ def stream_sparse_pieces(
         counts = _decode_in_order(plane, decode, emit, stages, "copy + decode (pieces)",
                                   "piece decode wait")
         with stages.stage("write drain + mirror hash"):
-            return counts, sink.finish()
+            return counts, sink.finish(verifier)
     except BaseException:
         sink.abort()
         raise

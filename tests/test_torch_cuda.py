@@ -858,3 +858,40 @@ def test_streaming_k17_index_takes_the_pieces_tail(cuda, tmp_path, monkeypatch):
     assert wrong == [0] and ref.fields_wrong(meta, expected) == []
     assert expected["num_kmers"] == genome.valid_windows(
         genome_bp=20_000_000, records=3, n_bases=1_000_000, n_runs=5, kmer_len=17)
+
+
+def test_k15_verify_reads_the_file_beside_the_hash_on_card(cuda, tmp_path, monkeypatch):
+    """A streaming K=15 index on the card: the verify's re-read starts after
+    the `.kin`'s last write has ended, counts 4^15 bytes, and the stage table
+    keeps its rows; the `.kin` and its sha256 equal those of the same index
+    without the verify, which reads nothing back."""
+    import hashlib
+
+    from pykmer_tpu_torch.utils import profiling
+
+    fasta = _genome(str(tmp_path / "v.fa"), np.random.default_rng(9))
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    shas, runs = [], []
+    for verify in (True, False):
+        header = create_fasta_index(fasta, "s", fasta, 15, verbose=False, device=cuda,
+                                    verify=verify)
+        h = hashlib.sha256()
+        with open(header.index_file_root, "rb") as fh:
+            for block in iter(lambda: fh.read(1 << 26), b""):
+                h.update(block)
+        shas.append((h.hexdigest(), header.output_file_cheksum))
+        runs.append(profiling.FINISHED_RUNS[-1])
+    assert shas[0] == shas[1] and shas[0][0] == shas[0][1]
+    on, off = runs
+
+    def named(name):
+        return [s for s in on.spans if s.name == name]
+
+    reads, counts = named("verify read"), named("verify count")
+    assert min(s.start for s in reads) >= max(s.end for s in named("pwrite"))
+    assert sum(s.counts["bytes"] for s in reads) == 4**15
+    assert sum(s.counts["bytes"] for s in counts) == 4**15
+    assert [name for name, _ in on.stages] == [
+        "input read", "decode + accumulate (pipelined)", "output alloc", "copy + unfold",
+        "write + hash drain", "metadata", "verify"]
+    assert not {"verify read", "verify count"} & {s.name for s in off.spans}

@@ -7,6 +7,7 @@ and the index records which tail it took."""
 import collections
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -25,6 +26,9 @@ from pykmer_tpu_torch.utils import profiling
 K = 11
 HALF = 4**K // 2
 SEG = 1 << 16  # 32 segments of the folded plane
+# the table the streaming index through the pieces tail prints, row by row
+PIECES_ROWS = ["input read", "decode + accumulate (pipelined)", "escape counts",
+               "copy + decode (pieces)", "write drain + mirror hash", "metadata", "verify"]
 SPEC = dict(genome_bp=200_003, records=3, repeat_cover=0.65, max_divergence=0.2,
             n_bases=9_000, n_runs=4)
 
@@ -103,6 +107,37 @@ def test_the_pieces_tail_spans_add_up(tmp_path, pieces):
     for s in reads:  # the mirror reader's thread, under the drain
         assert s.thread != me and s.parent is drain
     assert all(loop.start <= s.start <= s.end <= loop.end for s in packs + decodes)
+
+
+def test_the_pieces_tail_verify_reads_the_file_once_its_writes_have_landed(
+        tmp_path, pieces, monkeypatch):
+    """The verify reads the first half back once the last write has ended;
+    the mirror half is counted from the chunks the tail reads back to hash,
+    on the mirror reader's thread; together they count the file once, and
+    the stage table keeps its rows. Each write is slowed, so the writes are
+    still in flight when the segment loop ends."""
+    real = trb._spanned_pwrite
+
+    def slow(fd, arr, offset):
+        time.sleep(0.02)
+        real(fd, arr, offset)
+
+    monkeypatch.setattr(trb, "_spanned_pwrite", slow)
+    _index(tmp_path, 13)
+    run, = pieces
+
+    def named(name):
+        return [s for s in run.spans if s.name == name]
+
+    reads, counts, writes = named("verify read"), named("verify count"), named("pwrite")
+    assert min(s.start for s in reads) >= max(s.end for s in writes)
+    assert sum(s.counts["bytes"] for s in reads) == HALF
+    assert sum(s.counts["bytes"] for s in counts) == 4**K
+    mirror_threads = {s.thread for s in named("mirror read")}
+    on_mirror = [s for s in counts if s.thread in mirror_threads]
+    assert sum(s.counts["bytes"] for s in on_mirror) == HALF
+    assert {s.thread for s in counts} - mirror_threads == {"verify"}
+    assert [name for name, _ in run.stages] == PIECES_ROWS
 
 
 def test_a_raw_tail_records_raw(tmp_path, pieces):

@@ -11,6 +11,7 @@ import json
 import os
 import re
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -31,7 +32,8 @@ STAGE_ROWS = ["input read", "decode + accumulate (pipelined)", "output alloc",
               "copy + unfold", "write + hash drain", "metadata", "verify"]
 DISPATCH_SPANS = {"decode queue wait", "unfold", "write drain wait", "hash drain wait",
                   "input hash wait"}
-WORKER_SPANS = {"decode", "input wait", "sha256", "pwrite", "input sha256"}
+WORKER_SPANS = {"decode", "input wait", "sha256", "pwrite", "input sha256", "verify read",
+                "verify count"}
 
 
 @pytest.fixture
@@ -64,6 +66,17 @@ def _index(tmp_path, monkeypatch, name="g.fa"):
         verbose=False, device="cpu")
     assert len(timers) == 1
     return header, timers[0]
+
+
+def slow_writes(monkeypatch, seconds=0.05):
+    """Each write of the readback tail lands ``seconds`` late."""
+    real = trb._spanned_pwrite
+
+    def slow(fd, arr, offset):
+        time.sleep(seconds)
+        real(fd, arr, offset)
+
+    monkeypatch.setattr(trb, "_spanned_pwrite", slow)
 
 
 def _table_rows(text):
@@ -142,6 +155,32 @@ def test_sub_spans_lie_inside_their_parents(tmp_path, monkeypatch, finished):
     assert parents["write drain wait"] == parents["hash drain wait"] == "write + hash drain"
 
 
+def test_the_verify_reads_the_file_once_its_writes_have_landed(tmp_path, monkeypatch,
+                                                               finished):
+    """The verify's re-read of the `.kin` starts after its last write has
+    ended and runs on threads of its own, started in the tail's drain; what
+    it counts is the file, once; the table keeps its rows. Each write is
+    slowed, so the writes are still in flight when the slice loop ends."""
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    slow_writes(monkeypatch)
+    _, timer = _index(tmp_path, monkeypatch)
+
+    def named(name):
+        return [s for s in timer.spans if s.name == name]
+
+    reads, counts, writes = named("verify read"), named("verify count"), named("pwrite")
+    assert reads and counts and writes
+    assert min(s.start for s in reads) >= max(s.end for s in writes)
+    assert sum(s.counts["bytes"] for s in reads) == 4**K
+    assert sum(s.counts["bytes"] for s in counts) == 4**K
+    assert {s.thread for s in reads} == {"verify-read_0"}
+    assert {s.thread for s in counts} == {"verify"}
+    assert {s.parent.name for s in reads + counts} == {"write + hash drain"}
+    verify, = named("verify")
+    assert all(s.end <= verify.end for s in reads + counts)
+    assert [name for name, _ in timer.stages] == STAGE_ROWS
+
+
 def test_nothing_is_recorded_with_both_switches_unset(tmp_path, monkeypatch, finished,
                                                       capsys):
     _, timer = _index(tmp_path, monkeypatch)
@@ -175,8 +214,8 @@ def test_trace_dir_writes_one_trace_with_every_thread(tmp_path, monkeypatch, fin
     assert {e["name"] for e in workers} == WORKER_SPANS
     assert all(e["tid"] != main_tid and e["pid"] == os.getpid() for e in workers)
     assert {rows[e["tid"]] for e in workers if e["name"] == "decode"} == {"decode"}
-    assert {rows[e["tid"]].split("_")[0] for e in workers} == {"decode", "chase-hash",
-                                                                "chase-write", "input-hash"}
+    assert {rows[e["tid"]].split("_")[0] for e in workers} == {
+        "decode", "chase-hash", "chase-write", "input-hash", "verify", "verify-read"}
     # the workers' spans lie inside the index, on the trace's clock
     stage = {e["name"]: e for e in marks}
     lo, hi = stage["input read"]["ts"], stage["verify"]["ts"] + stage["verify"]["dur"]
