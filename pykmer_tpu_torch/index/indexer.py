@@ -17,16 +17,16 @@ each segment's raw bytes go to the card, and the card decodes them
 (``iter_card_chunks``, ``ops/fasta.py``). Compressed files and stdin are read
 whole and then pipelined with the host decode. The host strategy decodes the
 whole input first. Uploads go through
-a ring of pinned staging buffers. The chased readback tail
-(``ops/readback.py``) then copies, unfolds, writes and hashes the plane in the
-mode ``IndexConfig.readback`` resolves to (:func:`readback_mode`,
-``ops/packing.pick_mode``): raw, a fixed-width pack with escape patches, the
-sparse token stream, or, for a sparse plane above ``PIECES_MIN_CELLS``, the
-arena-free pieces tail. The verify re-reads the written file by O_DIRECT and
-counts it (``index/verify.py``), starting as soon as the tail's writes have
-landed, beside the output hash, and compares its stats with the in-memory
-ones before the rename. The files are the JAX package's, byte for byte, in
-every mode.
+a ring of pinned staging buffers. :func:`choose_tail` picks the readback
+tail (``ops/readback.py``: the chased copy, unfold, write and hash), and
+:func:`write_kin`, the sharded index's finish too, runs it: raw, a
+fixed-width pack with escape patches, the sparse token stream, or, for a
+sparse plane above ``PIECES_MIN_CELLS``, the arena-free pieces tail. The
+verify re-reads the written file by O_DIRECT and counts it
+(``index/verify.py``), starting as soon as the tail's writes have landed,
+beside the output hash, and compares its stats with the in-memory ones
+before the rename. The files are the JAX package's, byte for byte, in every
+mode.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ import contextlib
 import hashlib
 import os
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, Optional, Tuple, Union
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,7 +72,7 @@ STAGING_SLOTS = 3  # pinned host buffers the uploads rotate through
 # arena-free pieces tail (a test lowers it to drive that tail at small K)
 PIECES_MIN_CELLS = 1 << 30
 # K at which readback="auto" on CUDA follows the JAX package's choice
-# (readback_mode); everywhere else auto reads back raw
+# (choose_tail); everywhere else auto reads back raw
 AUTO_JAX_RULE_K = frozenset({17})
 # the readback tails this process's indexes took, by name: "raw", "2bit",
 # "3bit", "packed", "sparse" or "pieces" (the arena-free tail); a program
@@ -151,7 +151,6 @@ def create_fasta_index(
     stages = StageTimer()
     timer = header.timer
     cw = config.chunk_windows
-    tmp = header.index_tmp_file
     # a torch.profiler trace of the pipeline, with the worker threads'
     # spans, when PYKMER_TPU_TRACE_DIR is set; no-op otherwise
     with device_trace(stages=stages), ThreadPoolExecutor(1) as hash_pool, \
@@ -162,16 +161,17 @@ def create_fasta_index(
             with stages.stage("input read"):
                 data = StreamingInput(input_file, card=device if card else None)
             held.callback(data.release)  # on an error too: the buffer is the pool's
-            input_ck = None
+
+            def input_checksum() -> str:
+                # the input hash trails the read and runs beside the tail
+                with span("input hash wait"):
+                    input_hex = data.input_checksum()
+                data.release()
+                return input_hex
             pipelined = True
         else:
-            with stages.stage("input read"):
-                data = open_input_bytes(input_file)
-            # plain files and stdin hash the bytes already in memory; a
-            # compressed input hashes its file. Either overlaps the device
-            # work (hashlib releases the GIL).
-            input_ck = hash_pool.submit(_sha256_hex, data) if plain or from_stdin \
-                else hash_pool.submit(sha256_file, header.input_file_path)
+            data, input_ck = read_input(input_file, stages, hash_pool)
+            input_checksum = input_ck.result
             pipelined = strategy == "device" and have_native and len(data) > 0
 
         if pipelined:
@@ -210,87 +210,47 @@ def create_fasta_index(
         header.num_kmers = int(num_kmers)
         header.chromosomes = chromosomes
 
-        mode = readback_mode(config.readback, kmer_len, device, strategy)
-        counts = None
-        escapes = None
-        if mode == "auto" and data_size // 2 >= packing.AUTO_MIN_CELLS \
-                or mode == "sparse" and data_size // 2 > PIECES_MIN_CELLS:
-            with stages.stage("escape counts"):
-                escapes = packing.count_all_escapes(plane)
-        mode = packing.pick_mode(plane, data_size // 2, mode, escapes)
-        tail = mode
-        # the tail's sink starts it once the file's writes have landed
-        verifier = FileVerifier(tmp, data_size) if verify else None
-        if verifier is not None:
-            held.callback(verifier.close)  # on an error: no read outlives the index
-        if mode == "sparse" and data_size // 2 > PIECES_MIN_CELLS:
-            # no 4^K host array: each segment's pieces are written and hashed
-            with DirectWriter(tmp, size=data_size) as fd:
-                res = stream_sparse_pieces(plane, kmer_len, fd, tmp, escapes, stages=stages,
-                                           verifier=verifier)
-            if res is not None:
-                counts, output_ck = res
-                tail = "pieces"
-        TAILS[tail] += 1
-        if counts is None:
-            with stages.stage("output alloc"):
-                out = big_empty(data_size)
-            with DirectWriter(tmp, size=data_size) as fd:
-                counts, output_ck = stream_plane_to_out(plane, kmer_len, out, fd,
-                                                        stages=stages, mode=mode,
-                                                        verifier=verifier)
-            del out
-        del plane
-        # each folded cell adds its value plus exactly one structural zero
-        # (its non-canonical partner) to the full plane's histogram
-        counts[0] += data_size // 2
-        with stages.stage("metadata"):
-            if streaming:
-                # the input hash trails the read and runs beside the tail
-                with span("input hash wait"):
-                    input_hex = data.input_checksum()
-                data.release()
-            header.write_metadata(
-                tmp,
-                stats_counts256=counts,
-                input_checksum=input_hex if streaming else input_ck.result(),
-                output_checksum=output_ck,
-            )
+        tail = choose_tail(plane, kmer_len, config.readback, device, strategy, stages)
+        write_kin(header, plane, tail, stages, verify, input_checksum)
 
-        if verifier is not None:
-            # the end-to-end invariant: stats derived from the written file
-            # must equal the in-memory ones
-            with stages.stage("verify"):
-                fresh = stats_from_counts256(verifier.result())
-                if fresh["hist"] != header.hist or fresh["vals_sum"] != header.vals_sum:
-                    raise AssertionError("written .kin does not match computed stats")
-
-    os.rename(tmp, header.index_file_root)
-    if os.environ.get("PYKMER_TPU_STAGE_TIMING"):
-        report = f"stage timing ({strategy} strategy):\n" + stages.report()
-        if device.type == "cuda":
-            report += (f"\n  device peak memory: "
-                       f"{torch.cuda.max_memory_allocated(device)} bytes")
-        print(report, file=sys.stderr)
-    stages.finish()
+    report_stages(f"{strategy} strategy", stages, device)
     if verbose:
         print("done")
     return header
 
 
-def _sha256_hex(data) -> str:
-    return hashlib.sha256(data).hexdigest()
+def read_input(input_file: Optional[str], stages: StageTimer,
+               hash_pool: ThreadPoolExecutor) -> Tuple[object, Future]:
+    """The whole (decompressed) input, ``None`` for stdin, read as the
+    "input read" stage, and the future of its sha256 on ``hash_pool``, which
+    overlaps the work after it (hashlib releases the GIL): plain files and
+    stdin hash the bytes already in memory, a compressed input hashes its
+    file."""
+    with stages.stage("input read"):
+        data = open_input_bytes(input_file)
+    if input_file is not None and input_file.endswith((".gz", ".bgz")):
+        return data, hash_pool.submit(sha256_file, os.path.abspath(input_file))
+    return data, hash_pool.submit(lambda: hashlib.sha256(data).hexdigest())
 
 
-def readback_mode(readback: str, kmer_len: int, device: torch.device,
-                  strategy: str) -> str:
-    """The readback ``readback`` (``IndexConfig.readback``) stands for: raw
-    for the host strategy, whose plane is already in host memory; "auto" on
-    the CPU, and on CUDA at every K outside ``AUTO_JAX_RULE_K``, is raw;
-    "auto" on CUDA at a K of ``AUTO_JAX_RULE_K`` stays "auto" for
-    ``packing.pick_mode`` (the JAX package's cost model), so that at K >= 17
-    it takes the pieces tail where the plane is sparse enough. Explicit
-    modes stand. ``AUTO_JAX_RULE_K`` holds the K at which the card's times
+def choose_tail(plane: torch.Tensor, kmer_len: int, readback: str, device: torch.device,
+                strategy: str, stages: StageTimer) -> str:
+    """The readback tail of the folded ``plane``: "raw", "2bit", "3bit",
+    "packed", "sparse" (the token stream into the 4^K host array) or
+    "pieces" (the arena-free tail, :func:`ops.readback.stream_sparse_pieces`).
+
+    ``readback`` is ``IndexConfig.readback``. The host strategy, whose plane
+    is already in host memory, reads back raw; so does "auto" on the CPU and
+    on CUDA at every K outside ``AUTO_JAX_RULE_K``. Otherwise
+    ``packing.pick_mode`` decides, on the plane's escape counts where it
+    prices the modes (a stage "escape counts"); explicit modes stand. A
+    sparse plane above ``PIECES_MIN_CELLS`` cells takes the pieces tail
+    where, as the JAX package's gate asks, the sparse stream is priceable
+    (``packing.sparse_viable``) and at most one cell in 8 is nonzero (here
+    over the whole flat plane, where the JAX package asks it of each
+    2^30-cell sub-plane); otherwise it stays the arena "sparse".
+
+    ``AUTO_JAX_RULE_K`` holds the K at which the card's times
     (``chip_smoke.py`` phases 4b and 6b, PERF.md §6) showed the JAX
     package's choice no slower than raw. On an H100, with the smoke's 256
     Mbp genome: at K=15 its choice, the 2-bit plane, took 2.85-2.96 s
@@ -298,11 +258,85 @@ def readback_mode(readback: str, kmer_len: int, device: torch.device,
     pieces tail, took 25.1-27.2 s against raw's 34.5-36.2 s, so auto
     follows it. Below K=15 the JAX rule reads back raw anyway (planes under
     2^26 cells)."""
-    if strategy == "host":
+    if strategy == "host" or readback == "auto" and not (
+            device.type == "cuda" and kmer_len in AUTO_JAX_RULE_K):
         return "raw"
-    if readback == "auto" and not (device.type == "cuda" and kmer_len in AUTO_JAX_RULE_K):
-        return "raw"
-    return readback
+    cells = plane.shape[0]
+    escapes = None
+    if readback == "auto" and cells >= packing.AUTO_MIN_CELLS \
+            or readback == "sparse" and cells > PIECES_MIN_CELLS:
+        with stages.stage("escape counts"):
+            escapes = packing.count_all_escapes(plane)
+    tail = packing.pick_mode(plane, cells, readback, escapes)
+    if tail == "sparse" and cells > PIECES_MIN_CELLS and packing.sparse_viable(cells) \
+            and int(escapes[0]) <= cells // 8:
+        return "pieces"
+    return tail
+
+
+def write_kin(header: KinHeader, plane: Union[torch.Tensor, Sequence[torch.Tensor]],
+              tail: str, stages: StageTimer, verify: bool,
+              input_checksum: Callable[[], str]) -> None:
+    """Write the folded ``plane`` as ``header``'s `.kin` through ``tail``
+    (:func:`choose_tail`; a sharded run's list of local planes reads back
+    "raw"), stamp its `.kin.json` and rename it into place.
+
+    The tail writes and hashes the file (``ops/readback``). With ``verify``
+    an ``index/verify.FileVerifier``, which the tail's sink starts once the
+    file's writes have landed, reads the file back beside the output hash;
+    the "verify" stage compares its stats with the in-memory ones before the
+    rename. ``input_checksum()`` runs inside the "metadata" stage. The tail
+    is counted in ``TAILS``."""
+    tmp, size, kmer_len = header.index_tmp_file, header.data_size, header.kmer_len
+    TAILS[tail] += 1
+    verifier = FileVerifier(tmp, size) if verify else None
+    try:
+        if tail == "pieces":
+            # no 4^K host array: each segment's pieces are written and hashed
+            with DirectWriter(tmp, size=size) as fd:
+                counts, output_ck = stream_sparse_pieces(plane, kmer_len, fd, tmp,
+                                                         stages=stages, verifier=verifier)
+        else:
+            with stages.stage("output alloc"):
+                out = big_empty(size)
+            with DirectWriter(tmp, size=size) as fd:
+                counts, output_ck = stream_plane_to_out(plane, kmer_len, out, fd,
+                                                        stages=stages, mode=tail,
+                                                        verifier=verifier)
+            del out
+        # each folded cell adds its value plus exactly one structural zero
+        # (its non-canonical partner) to the full plane's histogram
+        counts[0] += size // 2
+        with stages.stage("metadata"):
+            header.write_metadata(tmp, stats_counts256=counts,
+                                  input_checksum=input_checksum(),
+                                  output_checksum=output_ck)
+        if verifier is not None:
+            # the end-to-end invariant: stats derived from the written file
+            # must equal the in-memory ones
+            with stages.stage("verify"):
+                fresh = stats_from_counts256(verifier.result())
+                if fresh["hist"] != header.hist or fresh["vals_sum"] != header.vals_sum:
+                    raise AssertionError("written .kin does not match computed stats")
+    except BaseException:
+        if verifier is not None:
+            verifier.close()  # no read outlives the index
+        raise
+    os.rename(tmp, header.index_file_root)
+
+
+def report_stages(title: str, stages: StageTimer, device: torch.device) -> None:
+    """End an index's run: with ``PYKMER_TPU_STAGE_TIMING`` set, print its
+    stage table to stderr under "stage timing (``title``):", and the peak
+    memory of a CUDA ``device``; then hand its spans to the recorder's
+    readers (``StageTimer.finish``)."""
+    if os.environ.get("PYKMER_TPU_STAGE_TIMING"):
+        report = f"stage timing ({title}):\n" + stages.report()
+        if device.type == "cuda":
+            report += (f"\n  device peak memory: "
+                       f"{torch.cuda.max_memory_allocated(device)} bytes")
+        print(report, file=sys.stderr)
+    stages.finish()
 
 
 def _check_supported(config: IndexConfig, kmer_len: int) -> None:

@@ -38,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import sys
 import threading
 import time
 import zlib
@@ -63,7 +62,7 @@ from ..state import shards_from_numpy, shards_to_numpy
 from ..utils.bigmem import big_empty
 from ..utils.checksum import sha256_file
 from ..utils.profiling import StageTimer
-from .indexer import PRINT_EVERY
+from .indexer import PRINT_EVERY, report_stages
 from .sharded import SHARDED_CHUNK_WINDOWS
 
 
@@ -485,14 +484,9 @@ def _build(project_name, sample_name, input_file, kmer_len, overwrite, config,
     multihost.barrier("pykmer_tpu_torch.index.multihost.done", group=serial)
     for p in range(nproc) if is_main else ():
         multihost.clear_shard_checkpoint(f"{tmp}.proc{p:03d}")
-    if os.environ.get("PYKMER_TPU_STAGE_TIMING"):
-        report = (f"stage timing (multihost, process {pid} of {nproc}, local mesh "
-                  f"{local_mesh.shape[DATA_AXIS]}x{local_mesh.shape[SHARD_AXIS]}):\n"
-                  + stages.report())
-        if local_mesh.first.type == "cuda":
-            report += (f"\n  device peak memory: "
-                       f"{torch.cuda.max_memory_allocated(local_mesh.first)} bytes")
-        print(report, file=sys.stderr)
+    report_stages(f"multihost, process {pid} of {nproc}, local mesh "
+                  f"{local_mesh.shape[DATA_AXIS]}x{local_mesh.shape[SHARD_AXIS]}",
+                  stages, local_mesh.first)
     return header if is_main else None
 
 

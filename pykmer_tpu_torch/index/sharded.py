@@ -7,10 +7,12 @@ kernel (``parallel/histogram.py``). Progress checkpoints (the ``[S, local]``
 shards plus the stream cursor, ``parallel/multihost.py``) make a long build
 resumable, and a checkpoint of either package resumes in the other.
 
-The input is decoded whole, as the JAX package's sharded path does. The tail
-reads the shards back through the chased readback (``ops/readback.py``) as
-their interleave: no device and no host buffer holds the whole flat plane
-beyond the 4^K output. The files are byte-identical to the single-device
+The input is decoded whole, as the JAX package's sharded path does. The
+finish is the single-device path's (``index/indexer.write_kin``): the raw
+tail reads the shards back through the chased readback (``ops/readback.py``)
+as their interleave, so no device and no host buffer holds the whole flat
+plane beyond the 4^K output, and the verify reads the file back beside the
+output hash. The files are byte-identical to the single-device
 path's: saturating integer adds are associative, so the mesh cannot change
 the result.
 """
@@ -19,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Union
 
@@ -28,20 +29,15 @@ import torch
 from ..config import IndexConfig
 from ..formats import kin as kinfmt
 from ..formats.header import KinHeader
-from ..io.direct import DirectWriter
-from ..io.fasta import open_input_bytes
-from ..utils.bigmem import big_empty
-from ..utils.checksum import sha256_file
 from ..utils.profiling import StageTimer
 
 from ..host.chunks import chunk_stream
 from ..host.decode import decode_joined_bytes
-from ..ops.readback import stream_plane_to_out
 from ..parallel import multihost
 from ..parallel.histogram import make_sharded_accumulate, shard_batch_chunks_packed
 from ..parallel.mesh import DATA_AXIS, SHARD_AXIS, Mesh, make_mesh
 from ..state import shards_from_numpy, shards_to_numpy
-from .indexer import PRINT_EVERY, _sha256_hex
+from .indexer import PRINT_EVERY, read_input, report_stages, write_kin
 
 # window starts per row of a sharded step: each step routes its chunks
 # through an exchange whose buffers scale with it (the JAX package's value)
@@ -92,7 +88,6 @@ def create_fasta_index_sharded(
         min_frag_size=config.min_frag_size,
         max_frag_size=config.max_frag_size,
     )
-    data_size = header.data_size
     tmp = header.index_tmp_file
     if mesh.first.type == "cuda":
         torch.cuda.reset_peak_memory_stats(mesh.first)
@@ -103,12 +98,7 @@ def create_fasta_index_sharded(
 
     stages = StageTimer()
     with ThreadPoolExecutor(1) as hash_pool:
-        with stages.stage("input read"):
-            data = open_input_bytes(input_file)
-        # the input's sha256 overlaps the decode and the device work
-        plain = not input_file.endswith((".gz", ".bgz"))
-        input_ck = hash_pool.submit(_sha256_hex, data) if plain \
-            else hash_pool.submit(sha256_file, header.input_file_path)
+        data, input_ck = read_input(input_file, stages, hash_pool)
         with stages.stage("fasta decode + join"):
             stream, chromosomes, total_bp = decode_joined_bytes(
                 data, kmer_len, tail_headroom=cw + kmer_len)
@@ -180,35 +170,10 @@ def create_fasta_index_sharded(
         header.num_kmers = num_kmers
         header.chromosomes = chromosomes
 
-        with stages.stage("output alloc"):
-            out = big_empty(data_size)
-        with DirectWriter(tmp, size=data_size) as fd:
-            counts, output_ck = stream_plane_to_out(planes[0], kmer_len, out, fd,
-                                                    stages=stages)
-        del planes, state, out
-        # each folded cell adds its value plus one structural zero (its
-        # non-canonical partner) to the full plane's histogram
-        counts[0] += data_size // 2
-        with stages.stage("metadata"):
-            header.write_metadata(tmp, stats_counts256=counts,
-                                  input_checksum=input_ck.result(),
-                                  output_checksum=output_ck)
-
-    if verify:
-        with stages.stage("verify"):
-            fresh = KinHeader(project_name, input_file=input_file, kmer_len=kmer_len)
-            fresh.update_stats_from_file(tmp)
-            if fresh.hist != header.hist or fresh.vals_sum != header.vals_sum:
-                raise AssertionError("written .kin does not match computed stats")
-    os.rename(tmp, header.index_file_root)
+        write_kin(header, planes[0], "raw", stages, verify, input_ck.result)
     multihost.clear_shard_checkpoint(tmp)
-    if os.environ.get("PYKMER_TPU_STAGE_TIMING"):
-        report = (f"stage timing (sharded, mesh {mesh.shape[DATA_AXIS]}x"
-                  f"{mesh.shape[SHARD_AXIS]}):\n" + stages.report())
-        if mesh.first.type == "cuda":
-            report += (f"\n  device peak memory: "
-                       f"{torch.cuda.max_memory_allocated(mesh.first)} bytes")
-        print(report, file=sys.stderr)
+    report_stages(f"sharded, mesh {mesh.shape[DATA_AXIS]}x{mesh.shape[SHARD_AXIS]}",
+                  stages, mesh.first)
     if verbose:
         print("done")
     return header

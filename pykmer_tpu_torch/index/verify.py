@@ -21,7 +21,7 @@ from ..io.direct import DirectReader, pread_into_mt
 from ..utils.bigmem import big_empty
 from ..utils.profiling import carry, span
 
-BLOCK = 1 << 28  # bytes a read of the verifier (as update_stats_from_file's blocks)
+BLOCK = 1 << 28  # bytes a read of the verifier
 
 
 class FileVerifier:

@@ -778,35 +778,29 @@ def _sparse_to_out(plane: torch.Tensor, kmer_len: int, out: np.ndarray,
 
 
 def stream_sparse_pieces(
-    plane: torch.Tensor, kmer_len: int, fd, path: str, escapes: Sequence[int],
+    plane: torch.Tensor, kmer_len: int, fd, path: str,
     stages: Optional[StageTimer] = None, verifier=None,
-) -> Optional[Tuple[np.ndarray, str]]:
+) -> Tuple[np.ndarray, str]:
     """Arena-free readback of the flat folded ``plane`` into the file
     ``path`` (open as ``fd``, 4^K bytes): each sparse segment decodes into
     two piece buffers (native), its escapes are patched there, and a
     :class:`PieceSink` writes and hashes them. Host memory holds a few
     pieces, never the 4^K array. A segment denser than the token caps reads
-    back through the 2-bit plane and unfolds to pieces.
+    back through the 2-bit plane and unfolds to pieces. Whether a plane
+    takes this tail is ``index/indexer.choose_tail``'s decision (the JAX
+    package's gate).
 
-    Returns (counts of the folded plane int64[256], sha256 hex of the file),
-    or None where the JAX package's gate refuses the plane (the caller takes
-    the arena path): the sparse stream must be priceable
-    (``packing.sparse_viable``) and ``escapes`` (its ``count_all_escapes``)
-    show at most one nonzero in 8 cells, here over the whole flat plane
-    where the JAX package asks it of each 2^30-cell sub-plane. ``stages``
-    receives the segment loop, any "2-bit
-    fallback", and "write drain + mirror hash" (the writes still queued,
-    then the second half re-read and hashed); each segment's decode is a
-    "piece decode" span on the decode pool, and the loop's wait for it a
-    "piece decode wait". A ``verifier`` reads the file back as
-    :meth:`PieceSink.finish` says. Port of
-    ``pykmer_tpu/ops/readback.py::stream_sparse_planes_pieces``, over the
+    Returns (counts of the folded plane int64[256], sha256 hex of the
+    file). ``stages`` receives the segment loop, any "2-bit fallback", and
+    "write drain + mirror hash" (the writes still queued, then the second
+    half re-read and hashed); each segment's decode is a "piece decode" span
+    on the decode pool, and the loop's wait for it a "piece decode wait". A
+    ``verifier`` reads the file back as :meth:`PieceSink.finish` says. Port
+    of ``pykmer_tpu/ops/readback.py::stream_sparse_planes_pieces``, over the
     flat plane's segments instead of 2^30-cell sub-planes."""
     size = plane.shape[0]
     if 2 * size != 4**kmer_len:
         raise ValueError(f"need a 4^{kmer_len}/2-cell plane")
-    if not (packing.sparse_viable(size) and int(escapes[0]) <= size // 8):
-        return None
     from ..io.native import sparse_decode_segment_piece_native
 
     stages = stages or StageTimer()

@@ -228,19 +228,44 @@ def test_readback_modes_match_jax(tmp_path, monkeypatch, readback):
 
 
 def test_readback_mode_rule(monkeypatch):
-    """auto reads back raw on the CPU and on CUDA outside AUTO_JAX_RULE_K;
-    the host strategy reads back raw; explicit modes stand."""
+    """choose_tail: auto reads back raw on the CPU and on CUDA outside
+    AUTO_JAX_RULE_K, and the host strategy raw, without counting escapes;
+    explicit modes stand; auto on CUDA at a K of AUTO_JAX_RULE_K prices the
+    modes on the escape counts; a sparse plane over PIECES_MIN_CELLS takes
+    the pieces tail, a dense one stays the arena sparse."""
     from pykmer_tpu_torch.index import indexer as tix
+    from pykmer_tpu_torch.ops import packing
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
+
+    def choose(plane, k, readback, device, strategy):
+        stages = tix.StageTimer()
+        tail = tix.choose_tail(plane, k, readback, device, strategy, stages)
+        return tail, [name for name, _ in stages.stages]
+
     monkeypatch.setattr(tix, "AUTO_JAX_RULE_K", frozenset({17}))
-    assert tix.readback_mode("auto", 17, cpu, "device") == "raw"
-    assert tix.readback_mode("auto", 15, cuda, "device") == "raw"
-    assert tix.readback_mode("auto", 17, cuda, "device") == "auto"
-    assert tix.readback_mode("auto", 17, cuda, "host") == "raw"
-    assert tix.readback_mode("2bit", 17, cuda, "host") == "raw"
+    for args in (("auto", 17, cpu, "device"), ("auto", 15, cuda, "device"),
+                 ("auto", 17, cuda, "host"), ("2bit", 17, cuda, "host")):
+        # no plane is looked at: a 4^17 plane is not made here
+        assert choose(None, args[1], *(args[0], *args[2:])) == ("raw", [])
+    rng = np.random.default_rng(5)
+    fold = 4**9 // 2
+    sparse = torch.from_numpy((rng.integers(1, 4, fold) * (rng.random(fold) < 0.05))
+                              .astype(np.uint8))
+    dense = torch.from_numpy((rng.integers(1, 3, fold) * (rng.random(fold) < 0.7))
+                             .astype(np.uint8))
     for mode in ("raw", "packed", "2bit", "3bit", "sparse"):
-        assert tix.readback_mode(mode, 9, cpu, "device") == mode
+        assert choose(sparse, 9, mode, cpu, "device") == (mode, [])
+    monkeypatch.setattr(tix, "AUTO_JAX_RULE_K", frozenset({9}))
+    monkeypatch.setattr(packing, "AUTO_MIN_CELLS", 1)
+    monkeypatch.setattr(packing, "SPARSE_MIN_CELLS", 1)
+    assert choose(dense, 9, "auto", cuda, "device") == ("2bit", ["escape counts"])
+    assert choose(sparse, 9, "auto", cuda, "device") == ("sparse", ["escape counts"])
+    assert choose(sparse, 9, "auto", cpu, "device") == ("raw", [])
+    monkeypatch.setattr(tix, "PIECES_MIN_CELLS", 0)
+    assert choose(sparse, 9, "auto", cuda, "device") == ("pieces", ["escape counts"])
+    assert choose(sparse, 9, "sparse", cpu, "device") == ("pieces", ["escape counts"])
+    assert choose(dense, 9, "sparse", cpu, "device") == ("sparse", ["escape counts"])
     with pytest.raises(ValueError, match="readback='4bit'"):
         tix._check_supported(IndexConfig(kmer_len=7, readback="4bit"), 7)
 

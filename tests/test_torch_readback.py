@@ -6,8 +6,8 @@ escape counts, the host unpacks, ``pack_sparse_segment`` at densities 0, 0.08
 and 0.6 (gaps over 83, values >= 3, a ragged segment), ``pick_mode``,
 ``fetch_dense``, the chased tail in every mode (the file's bytes, its sha256
 and the 256-bin counts), and the arena-free pieces tail (the JAX function
-run on two sub-planes of the same plane), with its 2-bit fallback and its
-refusal of a dense plane. The shapes are those of
+run on two sub-planes of the same plane), with its 2-bit fallback, and the
+port's chooser keeping a dense plane off it as the JAX package's gate does. The shapes are those of
 ``tests/test_readback_sparse.py`` and ``tests/test_ops.py``.
 """
 
@@ -328,8 +328,7 @@ def _port_pieces(folded, path):
     plane = torch.from_numpy(folded.copy())
     stages = StageTimer()
     with DirectWriter(path, size=4**K) as fd:
-        res = trb.stream_sparse_pieces(plane, K, fd, path, packing.count_all_escapes(plane),
-                                       stages=stages)
+        res = trb.stream_sparse_pieces(plane, K, fd, path, stages=stages)
     return res, stages
 
 
@@ -357,11 +356,19 @@ def test_pieces_match_jax(rng, tmp_path, monkeypatch, case):
 
 
 def test_pieces_decline_a_dense_plane(rng, tmp_path, monkeypatch):
+    """The JAX package's pieces gate refuses a plane denser than 1/8; the
+    port's chooser, which holds that gate, keeps it on the arena "sparse"
+    tail, with the pieces threshold lowered below it."""
+    from pykmer_tpu_torch.index import indexer as tix
+
     _sparse_knobs(monkeypatch, 1 << 14)
+    monkeypatch.setattr(tix, "PIECES_MIN_CELLS", 0)
     folded = _folded_plane(rng, FOLD, 0.7, long_zero_runs=False)
     assert _jax_pieces(folded, str(tmp_path / "j")) is None
-    res, stages = _port_pieces(folded, str(tmp_path / "t"))
-    assert res is None and not stages.stages
+    stages = StageTimer()
+    assert tix.choose_tail(torch.from_numpy(folded), K, "sparse", torch.device("cpu"),
+                           "device", stages) == "sparse"
+    assert [name for name, _ in stages.stages] == ["escape counts"]
 
 
 def test_piece_sink_drains_its_writers_on_error(tmp_path):

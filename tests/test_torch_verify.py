@@ -1,8 +1,10 @@
 """The index's verify on the CPU: faults planted in the writes of the `.kin`
 (the in-memory stats and the hash stay right) fail it, in the raw tail at
-K=9 and in the pieces tail at K=11 (its thresholds lowered), and leave no
-`.kin` at its final name; the pieces tail's mirror half is counted from the
-bytes read back from the file; ``verify=False`` reads nothing back."""
+K=9, in the sharded index over a 1x2 mesh at K=9 and in the pieces tail at
+K=11 (its thresholds lowered), and leave no `.kin` at its final name; the
+pieces tail's mirror half is counted from the bytes read back from the file;
+the sharded index reads its file back beside the hash; ``verify=False``
+reads nothing back."""
 
 import collections
 import os
@@ -16,6 +18,7 @@ from conftest import make_random_fasta
 import pykmer_tpu_torch
 from kbench import genome
 from pykmer_tpu_torch.config import IndexConfig
+from pykmer_tpu_torch.index import create_fasta_index_sharded
 from pykmer_tpu_torch.index import indexer as tix
 from pykmer_tpu_torch.index.verify import FileVerifier
 from pykmer_tpu_torch.ops import packing
@@ -46,9 +49,9 @@ def _pieces_on(monkeypatch):
 
 
 def _input(tmp_path, tail, monkeypatch):
-    """(FASTA path, K, readback) of ``tail``: "raw" at K=9, or "pieces" at
-    K=11 with its thresholds lowered."""
-    if tail == "raw":
+    """(FASTA path, K, readback) of ``tail``: "raw" or "sharded" at K=9, or
+    "pieces" at K=11 with its thresholds lowered."""
+    if tail in ("raw", "sharded"):
         path = str(tmp_path / "r.fa")
         make_random_fasta(path, np.random.default_rng(23), n_records=40,
                           lengths=(5000, 1333, 670))
@@ -60,13 +63,25 @@ def _input(tmp_path, tail, monkeypatch):
     return path, PIECES_K, "sparse"
 
 
-def _index(path, k, readback, verify=True):
+def _index(tail, path, k, readback, verify=True):
+    """(header, the tail ``tix.TAILS`` counted) of one index of ``path``:
+    the sharded index over a 1x2 CPU mesh for ``tail`` "sharded", which
+    reads back raw, the single-device index otherwise."""
     before = dict(tix.TAILS)
-    header = pykmer_tpu_torch.create_fasta_index(
-        path, "s", path, k, config=IndexConfig(kmer_len=k, readback=readback),
-        verify=verify, verbose=False, device="cpu")
+    if tail == "sharded":
+        header = create_fasta_index_sharded(
+            path, "s", path, k, config=IndexConfig(kmer_len=k, chunk_windows=1 << 14),
+            n_shards=2, verify=verify, verbose=False, device="cpu")
+    else:
+        header = pykmer_tpu_torch.create_fasta_index(
+            path, "s", path, k, config=IndexConfig(kmer_len=k, readback=readback),
+            verify=verify, verbose=False, device="cpu")
     took, = (tix.TAILS - collections.Counter(before)).keys()
     return header, took
+
+
+def _took(tail):
+    return "raw" if tail == "sharded" else tail
 
 
 def _planted(monkeypatch, pick, alter):
@@ -102,13 +117,14 @@ def _shifted(arr, offset):
 
 @pytest.mark.parametrize("tail,fault", [("raw", "byte"), ("raw", "shift"),
                                         ("pieces", "byte"), ("pieces", "shift"),
-                                        ("pieces", "mirror byte")])
+                                        ("pieces", "mirror byte"),
+                                        ("sharded", "byte"), ("sharded", "shift")])
 def test_a_planted_write_fault_fails_the_verify(tmp_path, monkeypatch, recorded, tail,
                                                 fault):
     path, k, readback = _input(tmp_path, tail, monkeypatch)
     full = 4**k
-    header, took = _index(path, k, readback)
-    assert took == tail
+    header, took = _index(tail, path, k, readback)
+    assert took == _took(tail)
     with open(header.index_file_root, "rb") as fh:
         clean = np.frombuffer(fh.read(), np.uint8)
     os.remove(header.index_file_root)
@@ -117,7 +133,7 @@ def test_a_planted_write_fault_fails_the_verify(tmp_path, monkeypatch, recorded,
         # the write at offset 0 lands SHIFT bytes late: [0, SHIFT) stays
         # zero, and whichever of it and the next write lands last hides
         # SHIFT nonzero-holding bytes of the other
-        n = full // 2 if tail == "raw" else SEG
+        n = SEG if tail == "pieces" else full // 2
         assert clean[n - SHIFT : n].any() and clean[n : n + SHIFT].any()
         hit = _planted(monkeypatch, lambda off, nb: off == 0, _shifted)
     elif fault == "byte":
@@ -125,20 +141,20 @@ def test_a_planted_write_fault_fails_the_verify(tmp_path, monkeypatch, recorded,
     else:  # the mirror of the first piece, which the tail reads back to hash
         hit = _planted(monkeypatch, lambda off, nb: off == full - SEG, _flip_first)
     with pytest.raises(AssertionError, match="written .kin does not match computed stats"):
-        _index(path, k, readback)
+        _index(tail, path, k, readback)
     assert len(hit) == 1
     assert not os.path.exists(header.index_file_root)
 
 
-@pytest.mark.parametrize("tail", ["raw", "pieces"])
+@pytest.mark.parametrize("tail", ["raw", "pieces", "sharded"])
 def test_without_verify_nothing_is_read_back_to_count(tmp_path, monkeypatch, recorded,
                                                       tail):
     path, k, readback = _input(tmp_path, tail, monkeypatch)
-    verified, _ = _index(path, k, readback)
+    verified, _ = _index(tail, path, k, readback)
     with open(verified.index_file_root, "rb") as fh:
         want = fh.read()
-    header, took = _index(path, k, readback, verify=False)
-    assert took == tail
+    header, took = _index(tail, path, k, readback, verify=False)
+    assert took == _took(tail)
     with open(header.index_file_root, "rb") as fh:
         assert fh.read() == want
     assert header.output_file_cheksum == verified.output_file_cheksum
@@ -146,6 +162,28 @@ def test_without_verify_nothing_is_read_back_to_count(tmp_path, monkeypatch, rec
     assert VERIFY_SPANS <= {s.name for s in on.spans}
     assert not VERIFY_SPANS & {s.name for s in off.spans}
     assert "verify" not in {name for name, _ in off.stages}
+
+
+def test_a_sharded_index_reads_its_file_back_beside_the_hash(tmp_path, monkeypatch,
+                                                             recorded):
+    """The sharded index's verify counts every byte of the written file
+    once, read back on its own threads after the last write has ended,
+    inside the tail's drain, as the single-device index's does."""
+    path, k, readback = _input(tmp_path, "sharded", monkeypatch)
+    _index("sharded", path, k, readback)
+    run, = recorded
+
+    def named(name):
+        return [s for s in run.spans if s.name == name]
+
+    reads, counts, writes = named("verify read"), named("verify count"), named("pwrite")
+    assert reads and counts and writes
+    assert min(s.start for s in reads) >= max(s.end for s in writes)
+    assert sum(s.counts["bytes"] for s in reads) == 4**k
+    assert sum(s.counts["bytes"] for s in counts) == 4**k
+    assert {s.thread for s in reads} == {"verify-read_0"}
+    assert {s.parent.name for s in reads + counts} == {"write + hash drain"}
+    assert [name for name, _ in run.stages][-2:] == ["metadata", "verify"]
 
 
 def test_the_verifier_counts_each_byte_once(tmp_path):
