@@ -46,8 +46,9 @@ Phases — each one passes or raises, and any failure exits non-zero:
    indexed at K=15 through the CLI entry point with verify on (the streaming
    pipeline); the kernel's launch count equals the count of chunks the
    pipeline frames, and so does the packed encode kernel's, and the card's
-   FASTA decode launches once for each record-aligned segment; a replay of the
-   same chunks with the plain encoder and the plain sweep gives the same
+   FASTA decode launches once for each record-aligned segment, and the
+   file-order unfold of the raw tail once for each 64 Mi-byte slice of the
+   `.kin`; a replay of the same chunks with the plain encoder and the plain sweep gives the same
    `.kin` byte for byte; a gzip -1 copy of the genome (the pipelined path
    that reads the input whole) and the host strategy (one encode launch a
    chunk, no sweep) give the same `.kin` sha256; then the readback modes on
@@ -62,6 +63,13 @@ Phases — each one passes or raises, and any failure exits non-zero:
    ``n_codes`` and record table equal; its median time on the card beside
    its byte bound (the raw bytes read once and the planes written once, at
    3.35 TB/s), and the plain version's on the card;
+4c. the card's file-order unfold (``ops/unfold.unfold_file``,
+   ``csrc/unfold.cu``) on the replay's plane against its plain torch version
+   on the card, on the 64 Mi-byte slice of the file below its middle (with
+   the 256-bin counts) and the mirror slice above it: bytes and counts
+   equal; each one's median time beside its byte bound (the slice's folded
+   cells read once and its bytes written once, at 3.35 TB/s), and the plain
+   version's;
 4b. the genome at K=15 in this process through ``create_fasta_index`` with
    ``IndexConfig(readback=...)`` raw, packed, 2bit, 3bit, sparse, raw again:
    each `.kin` sha256 phase 4's, each stage table logged, and whether the
@@ -118,7 +126,8 @@ Phases — each one passes or raises, and any failure exits non-zero:
    ``checkpoint_every=1`` stopped after its second save and then resumed,
    and ``index --shards <card count>`` through the CLI entry: each `.kin`
    sha256 equal to phase 4's, the sweep launched (R·S)^2 times per step and
-   the encode kernel once per position per step;
+   the encode kernel once per position per step, the unfold once a slice of
+   the file;
    one step's parts timed with CUDA events (bucket, exchange, the received
    rows applied one launch per row against one re-sort and one launch);
    (d) one K=15 step set on ``[cuda:0] * 4`` ``torch.equal`` to the same
@@ -144,10 +153,11 @@ Phases — each one passes or raises, and any failure exits non-zero:
    K=17 its peak device memory and peak host RSS. A worker that fails or
    times out fails the phase, and every worker is reaped;
 12. a JSON line of the kernels (the sweep's four rows, the encode
-   kernels' four, the FASTA decode's one), then the last line
+   kernels' four, the FASTA decode's one, the unfold's one), then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phase 2b runs after phase 2, then 2c; phases 7-9 between phases 2c and 3
+Phase 2b runs after phase 2, then 2c; 4c inside phase 4, after its readback
+modes; phases 7-9 between phases 2c and 3
 (7, with 10c) and after phase 5b (8, 9); 10a and 10d run after phase 9, 10b
 after phase 6b, 11 after 10b. The script exits non-zero, printing no result, where CUDA is unavailable or
 outside a checkout of the repository. It never imports jax. Scratch files go
@@ -584,7 +594,7 @@ def phase_slice(work, dev):
 
     import bench
     from pykmer_tpu_torch.utils.checksum import sha256_file
-    from pykmer_tpu_torch.ops import encode, fasta, sweep
+    from pykmer_tpu_torch.ops import encode, fasta, sweep, unfold
     from pykmer_tpu_torch.ops.histogram import saturating_accumulate_sorted
     from pykmer_tpu_torch.ops.readback import unfold_canonical
 
@@ -597,22 +607,27 @@ def phase_slice(work, dev):
     chunks, total_bp = pipelined_chunks(genome, k, cw)
 
     segments = len(card_segments(genome))
-    sweep.LAUNCHES = encode.LAUNCHES = fasta.LAUNCHES = 0
+    sweep.LAUNCHES = encode.LAUNCHES = fasta.LAUNCHES = unfold.LAUNCHES = 0
     wall, table = run_cli(["index", genome, "s", str(k), "--device", str(dev)])
     launches, enc_launches, dec_launches = sweep.LAUNCHES, encode.LAUNCHES, fasta.LAUNCHES
+    unf_launches = unfold.LAUNCHES
     log(table)
     log(f"index K={k}: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
         f"(verify on, streaming input), {len(chunks)} chunks of {cw} windows, "
         f"{launches} sweep launches, {enc_launches} encode launches, {dec_launches} "
-        f"FASTA decode launches for {segments} segments")
+        f"FASTA decode launches for {segments} segments, {unf_launches} unfold launches")
     if launches != len(chunks) or enc_launches != len(chunks) or dec_launches != segments:
         raise AssertionError(f"sweep launched {launches} times and the encode kernel "
                              f"{enc_launches} for {len(chunks)} chunks, the FASTA decode "
                              f"{dec_launches} times for {segments} segments")
+    if unf_launches != unfold_launches(k):
+        raise AssertionError(f"the unfold launched {unf_launches} times, not once for each "
+                             f"of the file's {unfold_launches(k)} slices")
 
     (plane,), nk = replay(chunks, k, cw, dev, [saturating_accumulate_sorted])
     want = unfold_canonical(plane.cpu().numpy(), k)
     choice = readback_ops(dev, plane, k)
+    unf_times = phase_unfold(dev, plane, k)
     del plane
     kin = genome + f".{k:02d}.kin"
     if not np.array_equal(np.fromfile(kin, dtype=np.uint8), want):
@@ -630,7 +645,59 @@ def phase_slice(work, dev):
     log(f"plain replay (plain encoder, plain sweep): .kin identical, num_kmers {nk}, "
         f"vals_max 255, output sha256 {sha} (the file's); {n_all_valid} of {len(chunks)} "
         f"chunks all-valid")
-    return (launches, enc_launches, dec_launches), genome, chunks, cw, total_bp, sha, choice
+    return ((launches, enc_launches, dec_launches, unf_launches), genome, chunks, cw, total_bp,
+            sha, choice, unf_times)
+
+
+def unfold_launches(k):
+    """The card unfold's launches in an index's raw tail on the card: one
+    for each ``SLICE_CELLS``-byte slice of the 4^K file."""
+    from pykmer_tpu_torch.ops import readback
+
+    return 2 * -(-(4**k // 2) // readback.SLICE_CELLS)
+
+
+def phase_unfold(dev, plane, k):
+    """Phase 4c: the card's file-order unfold (``ops/unfold.unfold_file``,
+    the kernel of ``csrc/unfold.cu``) on phase 4's replayed plane against
+    its plain torch version on the card, on the two slices of the file that
+    meet at its middle: the ``SLICE_CELLS`` bytes below 4^K/2, whose folded
+    cells the kernel also counts into the 256 bins, and the mirror slice
+    above, which reads the same cells in descending order. Bytes and counts
+    equal; each slice's median ms (CUDA events) beside its byte bound (its
+    folded cells read once and its bytes written once, at 3.35 TB/s); the
+    plain version timed on the first. Returns (max abs err, the slower
+    slice's ms, plain ms, bound ms)."""
+    import torch
+
+    from pykmer_tpu_torch.ops import readback, unfold
+
+    n = readback.SLICE_CELLS
+    half = 4**k // 2
+    bound = 2 * n / H100_SXM_BYTES_PER_S * 1e3
+    err, times, plain_ms = 0, [], None
+    for a, label in ((half - n, "first half, counted"), (half, "mirror half")):
+        f0, f1 = unfold.folded_range(k, a, a + n)
+        src = plane[f0:f1]
+        counts = torch.zeros(256, dtype=torch.int64, device=dev)
+        want_counts = torch.zeros_like(counts)
+        got = unfold.unfold_file(src, f0, k, a, a + n, counts)
+        want = unfold.unfold_file_plain(src, f0, k, a, a + n, want_counts)
+        if not torch.equal(got, want) or not torch.equal(counts, want_counts):
+            raise AssertionError(f"unfold of file bytes [{a}, {a + n}): card != plain")
+        err = max(err, max_abs_err(got, want), int((counts - want_counts).abs().max()))
+        del got, want
+        ms = median_ms(lambda: unfold.unfold_file(src, f0, k, a, a + n, counts), 20)
+        times.append(ms)
+        log(f"unfold K={k}, file bytes [{a}, {a + n}) ({label}): card == plain on the card, "
+            f"counts equal; median {ms:.4f} ms; bound {bound:.4f} ms ({2 * n} bytes read once "
+            f"and written once at {H100_SXM_BYTES_PER_S / 1e12} TB/s); at {bound / ms:.3f} of "
+            f"its bound")
+        if plain_ms is None:
+            plain_ms = median_ms(lambda: unfold.unfold_file_plain(src, f0, k, a, a + n), 3)
+            log(f"unfold K={k}, {label}: plain torch on the card, median {plain_ms:.3f} ms")
+    torch.cuda.empty_cache()
+    return err, max(times), plain_ms, bound
 
 
 def card_segments(genome):
@@ -1443,7 +1510,7 @@ def run_sharded(genome, k, mesh, label, total_bp, want_sha, n_chunks, **kw):
     import torch
 
     from pykmer_tpu_torch.index import create_fasta_index_sharded
-    from pykmer_tpu_torch.ops import encode, sweep
+    from pykmer_tpu_torch.ops import encode, sweep, unfold
 
     rows = len(mesh.devices) * len(mesh.devices[0])
     n_steps = -(-n_chunks // rows)
@@ -1451,6 +1518,7 @@ def run_sharded(genome, k, mesh, label, total_bp, want_sha, n_chunks, **kw):
     os.environ["PYKMER_TPU_STAGE_TIMING"] = "1"
     err = io.StringIO()
     sweep.LAUNCHES = sweep.LAUNCHES_I64 = encode.LAUNCHES = encode.LAUNCHES_I64 = 0
+    unfold.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(err):
@@ -1466,8 +1534,9 @@ def run_sharded(genome, k, mesh, label, total_bp, want_sha, n_chunks, **kw):
     log(f"sharded index K={k}, {label}: {total_bp} bp in {wall:.3f} s = "
         f"{total_bp / wall:.0f} bp/s (verify on), {n_steps - first} steps of {rows} rows "
         f"x {SHARD_CW} windows, {launches} sweep launches ({launches_i64} int64), encode "
-        f"launches {enc_launches[0]} ({enc_launches[1]} int64), peak device memory {peak} "
-        f"bytes, output sha256 {meta['output_file_cheksum']}")
+        f"launches {enc_launches[0]} ({enc_launches[1]} int64), {unfold.LAUNCHES} unfold "
+        f"launches, peak device memory {peak} bytes, output sha256 "
+        f"{meta['output_file_cheksum']}")
     if meta["output_file_cheksum"] != want_sha:
         raise AssertionError(f"sharded K={k} {label}: .kin sha256 differs from the "
                              f"single-device run's")
@@ -1476,6 +1545,9 @@ def run_sharded(genome, k, mesh, label, total_bp, want_sha, n_chunks, **kw):
     if launches != steps * rows * rows or enc_launches != want_enc:
         raise AssertionError(f"sharded K={k} {label}: {launches} sweep launches, encode "
                              f"{enc_launches}, expected {steps * rows * rows}, {want_enc}")
+    if unfold.LAUNCHES != unfold_launches(k):
+        raise AssertionError(f"sharded K={k} {label}: {unfold.LAUNCHES} unfold launches, "
+                             f"expected {unfold_launches(k)}")
     return wall, launches, enc_launches[0]
 
 
@@ -1927,8 +1999,8 @@ def main():
         phase_certify_k19(dev)
         phase_merge_fanin(work, dev)
         small_fa = phase_oracle(work, dev)
-        (launches, enc_launches, dec_launches), genome, chunks, cw, total_bp, sha, choice = \
-            phase_slice(work, dev)
+        (launches, enc_launches, dec_launches, unf_launches), genome, chunks, cw, total_bp, \
+            sha, choice, unf_times = phase_slice(work, dev)
         dec_times = phase_fasta(dev, genome, cw)
         gz = phase_k15_variants(work, dev, genome, total_bp, sha, cw)
         phase_k15_modes(dev, genome, total_bp, sha, choice)
@@ -2021,6 +2093,23 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         # no PyTorch call parses FASTA
+        "library_ms": None,
+    })
+    # launches: the K=15 index (phase 4); times: phase 4c's slower slice
+    err, ms, plain_ms, bound_ms = unf_times
+    kernels.append({
+        "name": "unfold_file",
+        "route": "cuda",
+        "source": "pykmer_tpu_torch/csrc/unfold.cu",
+        # the JAX package unfolds on the host
+        "replaces": "pykmer_tpu/ops/readback.py:323",
+        "launches": unf_launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        # no PyTorch call unfolds a folded canonical plane
         "library_ms": None,
     })
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

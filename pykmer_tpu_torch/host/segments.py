@@ -92,11 +92,13 @@ class _Pinned:
 
 
 class _PinnedPool:
-    """The process's page-locked input buffer, leased to one input at a
-    time and kept between indexes. It grows only when a larger input
-    arrives, so the pinning (0.2-0.25 s for 850 MB on an H100 host) is paid
-    once and not on every index. The indexes of a process run one after
-    another: a second lease before the first is given back is an error."""
+    """One page-locked buffer of the process, leased to one index at a time
+    and kept between indexes. It grows only when a larger one is asked for,
+    so the pinning (0.2-0.25 s for 850 MB on an H100 host) is paid once and
+    not on every index. The streaming input leases it with :meth:`lease`:
+    the indexes of a process run one after another, and a second lease
+    before the first is given back is an error. :meth:`try_lease` returns
+    None instead, for a caller that can do without it."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -104,10 +106,18 @@ class _PinnedPool:
         self._leased = False
 
     def lease(self, size: int) -> _Pinned:
+        buf = self.try_lease(size)
+        if buf is None:
+            raise RuntimeError("the page-locked input buffer is leased to another "
+                               "streaming input; release that one first")
+        return buf
+
+    def try_lease(self, size: int) -> Optional[_Pinned]:
+        """The buffer, grown to at least ``size`` bytes, or None while
+        another lease holds it."""
         with self._lock:
             if self._leased:
-                raise RuntimeError("the page-locked input buffer is leased to another "
-                                   "streaming input; release that one first")
+                return None
             if self._buf is None or self._buf.size < size:
                 if self._buf is not None:
                     self._buf.free()
@@ -122,6 +132,9 @@ class _PinnedPool:
 
 
 PINNED = _PinnedPool()
+# the `.kin` where the card unfolds it in file order, up to
+# ``ops/readback.PINNED_OUT_MAX`` bytes (``ops/readback.output_array``)
+PINNED_OUT = _PinnedPool()
 
 
 class StreamingInput:

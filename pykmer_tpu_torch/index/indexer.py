@@ -47,7 +47,7 @@ from ..formats import kin as kinfmt
 from ..formats.header import KinHeader, stats_from_counts256
 from ..io.direct import DirectWriter
 from ..io.fasta import open_input_bytes
-from ..utils.bigmem import big_empty, big_zeros
+from ..utils.bigmem import big_zeros
 from ..utils.checksum import sha256_file
 from ..utils.profiling import StageTimer, device_trace, span
 from .. import resolve_device
@@ -58,7 +58,7 @@ from ..host.segments import StreamingInput
 from ..ops.encode import canonical_codes_packed
 from ..ops import packing
 from ..ops.histogram import sort_codes_fast
-from ..ops.readback import stream_plane_to_out, stream_sparse_pieces
+from ..ops.readback import output_array, stream_plane_to_out, stream_sparse_pieces
 from ..ops.sweep import accumulate_sorted
 from .verify import FileVerifier
 
@@ -297,9 +297,8 @@ def write_kin(header: KinHeader, plane: Union[torch.Tensor, Sequence[torch.Tenso
                 counts, output_ck = stream_sparse_pieces(plane, kmer_len, fd, tmp,
                                                          stages=stages, verifier=verifier)
         else:
-            with stages.stage("output alloc"):
-                out = big_empty(size)
-            with DirectWriter(tmp, size=size) as fd:
+            with output_array(plane, tail, size, stages) as out, \
+                    DirectWriter(tmp, size=size) as fd:
                 counts, output_ck = stream_plane_to_out(plane, kmer_len, out, fd,
                                                         stages=stages, mode=tail,
                                                         verifier=verifier)

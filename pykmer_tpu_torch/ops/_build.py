@@ -92,6 +92,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         #  name_off, name_end, rec_start, has_valid, stream)
         "pykmer_fasta_write": [ptr, i64, i64, ptr, ptr, i64, ptr, i64, i64, i64,
                                ptr, ptr, ptr, ptr, ptr],
+        # (folded from cell c0, c0, out, a, n, K, counts or NULL, stream)
+        "pykmer_unfold_file": [ptr, i64, ptr, i64, i64, i64, ptr, ptr],
     }
     for name, argtypes in untyped.items():
         fn = getattr(lib, name)

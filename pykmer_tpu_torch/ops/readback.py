@@ -5,7 +5,10 @@ slices and unfolds each into the full 4^K host array while the next slice is
 in flight; a :class:`ChaseSink` writes each finished region and its mirror to
 the `.kin` and advances the output sha256 behind the unfold. So the copy, the
 unfold, the write and the hash overlap, and host memory holds the 4^K output
-plus two slices, never a second whole-plane copy.
+plus two slices, never a second whole-plane copy. A raw plane on the card
+unfolds there instead (``ops/unfold``, ``csrc/unfold.cu``), in file order:
+each slice of the file reaches the host final, and the sink writes and
+hashes it once, so the sha256 chases the whole file.
 
 Its ``mode`` says what crosses the link (``ops/packing.py`` holds the device
 ops and the choice, ``pick_mode``):
@@ -50,6 +53,7 @@ multi-threaded fetch and the keepalive.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import os
 import time
@@ -60,12 +64,17 @@ import numpy as np
 import torch
 
 from ..formats.header import fast_counts256
+from ..host.segments import PINNED_OUT
 from ..io.direct import DirectReader, pread_into_mt
 from ..utils.bigmem import big_empty
 from ..utils.profiling import StageTimer, carry, span
-from . import packing
+from . import packing, unfold
 
 SLICE_CELLS = 64 << 20  # folded cells per device-to-host slice
+# the largest `.kin` that lands in the process's page-locked output (the
+# K=15 file): a larger one would lock 16 GiB or more of host memory for
+# the life of the process, and lands in pageable memory
+PINNED_OUT_MAX = 1 << 30
 UNFOLD_THREADS = 4  # host threads that unfold one slice (native, GIL-free)
 WRITE_THREADS = 2
 DECODE_THREADS = 4  # host threads that decode sparse segments
@@ -241,18 +250,23 @@ def _patch_counts(counts: np.ndarray, vals: np.ndarray, escape: int) -> np.ndarr
 class ChaseSink:
     """Write + sha256 chasing the finished regions of the unfolded plane.
 
-    ``region_done(lo, hi)`` takes ascending first-half cell ranges as they
-    become final. It queues the range and its mirror for the background
-    writers (``fd`` may be None: no file) and the range for the hasher
-    thread, which advances the sha256 frontier through the first half of
-    ``out`` in order. The second half completes in reverse region order, so
-    :meth:`finish` hashes it as one pass: the only serial remainder.
-    ``region_done`` is called from one thread."""
+    ``region_done(lo, hi)`` takes ascending ranges of ``out`` as they become
+    final, from one thread. It queues each for the background writers
+    (``fd`` may be None: no file) and for the hasher thread, which advances
+    the sha256 frontier through ``out`` in order. Where ``mirrored`` (the
+    host unfold's layout) the ranges are first-half cell ranges, each also
+    final in its mirror, which is written beside it; the second half
+    completes in reverse region order, so :meth:`finish` hashes it as one
+    pass: the only serial remainder. Otherwise (the card's unfold, in file
+    order) the ranges ascend through the whole of ``out``, each written once
+    and hashed as it comes, and nothing remains to hash after them."""
 
-    def __init__(self, out: np.ndarray, fd=None):
+    def __init__(self, out: np.ndarray, fd=None, mirrored: bool = True):
         self.out = out
         self.fd = fd
         self.full = out.shape[0]
+        self.mirrored = mirrored
+        self.end = self.full // 2 if mirrored else self.full
         self.h = hashlib.sha256()
         self.writers = ThreadPoolExecutor(WRITE_THREADS, thread_name_prefix="chase-write") \
             if fd is not None else None
@@ -270,8 +284,9 @@ class ChaseSink:
             full = self.full
             write = carry(_spanned_pwrite)
             self._futs.append(self.writers.submit(write, self.fd, self.out[lo:hi], lo))
-            self._futs.append(self.writers.submit(
-                write, self.fd, self.out[full - hi : full - lo], full - hi))
+            if self.mirrored:
+                self._futs.append(self.writers.submit(
+                    write, self.fd, self.out[full - hi : full - lo], full - hi))
         self._futs.append(self.hasher.submit(carry(_spanned_update), self.h, self.out[lo:hi]))
         self.expected = hi
 
@@ -280,10 +295,11 @@ class ChaseSink:
         of the whole of ``out``. A ``verifier`` (``index/verify.FileVerifier``)
         starts reading the whole file back once the writes have landed, while
         the hash drains."""
-        if self.expected != self.full // 2:
-            raise ValueError(f"regions end at {self.expected}, not {self.full // 2}")
-        self._futs.append(self.hasher.submit(carry(_spanned_update), self.h,
-                                             self.out[self.full // 2 :]))
+        if self.expected != self.end:
+            raise ValueError(f"regions end at {self.expected}, not {self.end}")
+        if self.mirrored:
+            self._futs.append(self.hasher.submit(carry(_spanned_update), self.h,
+                                                 self.out[self.full // 2 :]))
         if self.writers is not None:
             with span("write drain wait"):
                 self.writers.shutdown(wait=True)
@@ -560,7 +576,9 @@ def stream_plane_to_out(
     mode in its name where it is not raw; for "sparse" the segment loop and,
     where segments overflowed the token caps, a "2-bit fallback" entry) and
     what remains after it ("write + hash drain": the writes and hashes still
-    queued, then the mirror half's hash). A ``verifier``
+    queued, then, after a host unfold, the mirror half's hash). A raw plane
+    on the card unfolds there, in file order (:func:`_file_order_to_out`).
+    A ``verifier``
     (``index/verify.FileVerifier``) reads ``fd``'s file back from the moment
     its writes have landed (:meth:`ChaseSink.finish`)."""
     shards = [plane] if isinstance(plane, torch.Tensor) else list(plane)
@@ -578,13 +596,15 @@ def stream_plane_to_out(
         raise ValueError("a sharded plane reads back raw")
 
     stages = stages or StageTimer()
-    sink = ChaseSink(out, fd)
+    card = card_unfolds(plane, mode)
+    sink = ChaseSink(out, fd, mirrored=not card)
     try:
         if mode == "sparse":
             counts = _sparse_to_out(shards[0], kmer_len, out, sink, stages)
         else:
             with stages.stage("copy + unfold" if mode == "raw" else f"copy + unfold ({mode})"):
-                counts = _slices_to_out(shards, kmer_len, out, sink, slice_cells, mode)
+                counts = _file_order_to_out(shards, kmer_len, out, sink, slice_cells) if card \
+                    else _slices_to_out(shards, kmer_len, out, sink, slice_cells, mode)
         with stages.stage("write + hash drain"):
             return counts, sink.finish(verifier)
     except BaseException:
@@ -633,6 +653,69 @@ def _slices_to_out(
     finally:
         slices.close()
     return counts
+
+
+def card_unfolds(plane: Union[torch.Tensor, Sequence[torch.Tensor]], mode: str) -> bool:
+    """Whether :func:`stream_plane_to_out` unfolds ``plane`` (or a sharded
+    run's local planes) on the card, in file order: a raw plane on CUDA."""
+    first = plane if isinstance(plane, torch.Tensor) else plane[0]
+    return mode == "raw" and first.device.type == "cuda"
+
+
+@contextlib.contextmanager
+def output_array(plane: Union[torch.Tensor, Sequence[torch.Tensor]], mode: str,
+                 size: int, stages: StageTimer) -> Iterator[np.ndarray]:
+    """The uint8[``size``] host array that :func:`stream_plane_to_out`
+    fills from ``plane`` in ``mode``, for the ``with`` block; taken in
+    ``stages``' "output alloc" stage. Where the card unfolds
+    (:func:`card_unfolds`) a file of at most ``PINNED_OUT_MAX`` bytes, it is
+    the process's page-locked output (``host/segments.PINNED_OUT``,
+    registered once and kept), which a 64 MiB slice reaches in ~1.3 ms on an
+    H100 host, unless another index holds it. Otherwise it is a fresh
+    pageable array, which the card's slices reach ~5x slower."""
+    with stages.stage("output alloc"):
+        pinned = PINNED_OUT.try_lease(size) \
+            if card_unfolds(plane, mode) and size <= PINNED_OUT_MAX else None
+        out = big_empty(size) if pinned is None else pinned.array[:size]
+    try:
+        yield out
+    finally:
+        if pinned is not None:
+            PINNED_OUT.give_back()
+
+
+def _file_order_to_out(
+    shards: List[torch.Tensor], kmer_len: int, out: np.ndarray, sink: ChaseSink,
+    slice_cells: int,
+) -> np.ndarray:
+    """The slice loop of :func:`stream_plane_to_out` for a raw plane on the
+    card: the whole file, [0, 4^K), in slices of ``slice_cells`` bytes in
+    file order, each unfolded on the device (``ops/unfold``: one launch a
+    slice), copied into ``out`` and handed to ``sink`` (a file-order
+    :class:`ChaseSink`). The copy waits for the slice: in a page-locked
+    ``out`` (:func:`output_array`) a 64 MiB slice lands in ~1.3 ms on an
+    H100, far inside the ~60 ms its hash takes, so the hasher never waits
+    for the loop. A slice reads the same folded cells as its mirror, so a
+    sharded plane's slices stay multiples of S. On a CPU plane the plain
+    version runs. Returns the 256-bin counts, which the first half's
+    unfolds add up on the device."""
+    plane = shards[0]
+    full = out.shape[0]
+    first = _slice_bounds(full // 2, slice_cells)
+    bounds = first + [(full - hi, full - lo) for lo, hi in reversed(first)]
+    view = (lambda lo, hi: plane[lo:hi]) if len(shards) == 1 else _interleaved(shards)
+    counts = torch.zeros(256, dtype=torch.int64, device=plane.device)
+    card = plane.device.type == "cuda"
+    for lo, hi in bounds:
+        f0, f1 = unfold.folded_range(kmer_len, lo, hi)
+        # half the slice's bytes (a slice and its mirror, each once): the
+        # cells a host unfold's slice counts
+        n = (hi - lo + (hi <= full // 2)) // 2
+        with span("unfold", cells=n, card_cells=n if card else 0):
+            torch.from_numpy(out[lo:hi]).copy_(
+                unfold.unfold_file(view(f0, f1), f0, kmer_len, lo, hi, counts))
+        sink.region_done(lo, hi)
+    return counts.cpu().numpy()
 
 
 def _unfold(folded: np.ndarray, out: np.ndarray, kmer_len: int, lo: int,

@@ -895,3 +895,163 @@ def test_k15_verify_reads_the_file_beside_the_hash_on_card(cuda, tmp_path, monke
         "input read", "decode + accumulate (pipelined)", "output alloc", "copy + unfold",
         "write + hash drain", "metadata", "verify"]
     assert not {"verify read", "verify count"} & {s.name for s in off.spans}
+
+
+# ---- the file-order unfold on the card (ops/unfold, csrc/unfold.cu) ----------------
+
+
+def _unfold_plane(kmer_len, seed):
+    """A folded plane with zeros, small counts and saturated cells."""
+    rng = np.random.default_rng(seed)
+    half = 4**kmer_len // 2
+    vals = rng.choice(np.array([1, 1, 2, 3, 7, 100, 255], np.uint8), size=half)
+    return vals * (rng.random(half) < 0.6).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kmer_len", [11, 13, 15])
+def test_unfold_kernel_matches_plain(cuda, kmer_len):
+    """The whole file in one launch: the plain version's bytes and counts."""
+    from pykmer_tpu_torch.ops import unfold
+
+    full = 4**kmer_len
+    plane = torch.from_numpy(_unfold_plane(kmer_len, kmer_len)).to(cuda)
+    counts = torch.zeros(256, dtype=torch.int64, device=cuda)
+    want_counts = torch.zeros_like(counts)
+    before = unfold.LAUNCHES
+    got = unfold.unfold_file(plane, 0, kmer_len, 0, full, counts)
+    torch.cuda.synchronize()
+    assert unfold.LAUNCHES == before + 1
+    want = unfold.unfold_file_plain(plane, 0, kmer_len, 0, full, want_counts)
+    assert torch.equal(got, want)
+    assert torch.equal(counts, want_counts)
+    assert int(counts.sum()) == full // 2
+
+
+@pytest.mark.parametrize("kmer_len", [1, 2, 3, 4, 7, 11])
+def test_unfold_kernel_any_range_and_view(cuda, kmer_len):
+    """Ragged, unaligned, straddling and aligned ranges, from views that
+    start at the range's first folded cell or one before it (an unaligned
+    pointer): the plain version's bytes and counts, one launch each."""
+    from pykmer_tpu_torch.ops import unfold
+
+    full = 4**kmer_len
+    half = full // 2
+    plane = torch.from_numpy(_unfold_plane(kmer_len, 1)).to(cuda)
+    rng = np.random.default_rng(kmer_len)
+    pairs = [(0, full), (0, half), (half, full)]
+    pairs += [tuple(sorted(int(x) for x in rng.integers(0, full + 1, 2))) for _ in range(40)]
+    if full >= 256:
+        pairs += [(16, half - 16), (half + 16, full - 32), (half - 32, half + 48)]
+    for a, b in pairs:
+        if a == b:
+            continue
+        lo, hi = unfold.folded_range(kmer_len, a, b)
+        for c0 in {lo, max(lo - 1, 0)}:
+            src = plane[c0:hi]
+            counts = torch.zeros(256, dtype=torch.int64, device=cuda)
+            want_counts = torch.zeros_like(counts)
+            before = unfold.LAUNCHES
+            got = unfold.unfold_file(src, c0, kmer_len, a, b, counts)
+            assert unfold.LAUNCHES == before + 1
+            want = unfold.unfold_file_plain(src, c0, kmer_len, a, b, want_counts)
+            assert torch.equal(got, want), (a, b, c0)
+            assert torch.equal(counts, want_counts), (a, b, c0)
+
+
+def test_file_order_tail_on_card_whole_and_over_shards(cuda, tmp_path):
+    """The raw tail of a K=11 plane on the card, whole and as a 4-shard
+    interleave over a repeated device, in ragged slices: the `.kin`, sha256
+    and counts of the CPU's host unfold; one unfold launch a slice."""
+    from pykmer_tpu_torch.io.direct import DirectWriter
+    from pykmer_tpu_torch.ops import readback, unfold
+
+    k, slice_cells = 11, 3 << 17
+    full = 4**k
+    folded = _unfold_plane(k, 2)
+
+    def tail(plane, path):
+        out = np.full(full, 77, np.uint8)
+        with DirectWriter(path, size=full) as fd:
+            counts, hex_ = readback.stream_plane_to_out(plane, k, out, fd,
+                                                        slice_cells=slice_cells)
+        with open(path, "rb") as fh:
+            return fh.read(), hex_, counts.tolist()
+
+    want = tail(torch.from_numpy(folded), str(tmp_path / "cpu"))
+    n_slices = 2 * -(-(full // 2) // slice_cells)
+    for shards in ([torch.from_numpy(folded).to(cuda)],
+                   [torch.from_numpy(folded[s::4].copy()).to(cuda) for s in range(4)]):
+        before = unfold.LAUNCHES
+        got = tail(shards[0] if len(shards) == 1 else shards, str(tmp_path / "card"))
+        assert unfold.LAUNCHES == before + n_slices
+        assert got == want
+
+
+def test_raw_index_on_card_beside_a_held_pinned_output(cuda, tmp_path):
+    """Two raw indexes of one process at once: while one holds the
+    page-locked output (``ops/readback.output_array``), the other's card
+    unfold lands in pageable memory, with the same `.kin`, and no error;
+    then the pooled output is free again."""
+    from pykmer_tpu_torch.host import segments
+    from pykmer_tpu_torch.ops import readback, unfold
+    from pykmer_tpu_torch.utils.profiling import StageTimer
+
+    fasta = _genome(str(tmp_path / "o.fa"), np.random.default_rng(12))
+    cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 16, readback="raw")
+    plane = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    assert readback.card_unfolds(plane, "raw") and readback.card_unfolds([plane] * 2, "raw")
+    assert not readback.card_unfolds(plane, "packed")
+
+    def index():
+        return _kin(create_fasta_index(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                       device=cuda))
+
+    alone = index()
+    with readback.output_array(plane, "raw", 4**11, StageTimer()) as held:
+        assert np.shares_memory(held, segments.PINNED_OUT._buf.array)
+        before = unfold.LAUNCHES
+        beside = index()
+        assert unfold.LAUNCHES > before
+    assert beside == alone
+    assert segments.PINNED_OUT.try_lease(4**11) is not None
+    segments.PINNED_OUT.give_back()
+
+
+def test_k15_index_unfolds_on_card_in_file_order(cuda, tmp_path, monkeypatch):
+    """A streaming K=15 index on the card: one unfold launch a 64 Mi-cell
+    slice of the file, "unfold" spans of 4^K/2 cells all on the card, every
+    sha256 update a slice's (no serial remainder after the loop); its `.kin`
+    and `.kin.json` equal the CPU index's, whose host unfold counts no card
+    cells."""
+    import json
+
+    from reference_runner import VOLATILE_KIN_JSON_KEYS
+
+    from pykmer_tpu_torch.ops import readback, unfold
+    from pykmer_tpu_torch.utils import profiling
+
+    fasta = _genome(str(tmp_path / "u.fa"), np.random.default_rng(10))
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    half = 4**15 // 2
+    outs = []
+    for dev in ("cpu", cuda):
+        unfold.LAUNCHES = 0
+        header = create_fasta_index(fasta, "s", fasta, 15, verbose=False, device=dev)
+        run = profiling.FINISHED_RUNS[-1]
+        with open(header.metadata_file) as fh:
+            meta = json.load(fh)
+        unfolds = [s for s in run.spans if s.name == "unfold"]
+        hashes = [s.counts["bytes"] for s in run.spans if s.name == "sha256"]
+        outs.append((_kin(header)[0], meta, unfold.LAUNCHES,
+                     sum(s.counts["cells"] for s in unfolds),
+                     sum(s.counts.get("card_cells", 0) for s in unfolds), hashes))
+    (kin_c, meta_c, n_c, cells_c, card_c, _), (kin_g, meta_g, n_g, cells_g, card_g, hashes) = outs
+    assert kin_g == kin_c
+    assert set(meta_g) == set(meta_c)
+    for key in meta_c:
+        if key not in VOLATILE_KIN_JSON_KEYS:
+            assert meta_g[key] == meta_c[key], key
+    assert (n_c, cells_c, card_c) == (0, half, 0)
+    assert n_g == 2 * half // readback.SLICE_CELLS
+    assert cells_g == card_g == half
+    assert sum(hashes) == 2 * half and max(hashes) <= readback.SLICE_CELLS
