@@ -4,9 +4,9 @@
 (``pykmer_tpu/index/indexer.py``). A producer thread decodes record-aligned
 segments of the raw input with the native decoder, up to two segments ahead
 of the consumer, which turns each decoded segment into packed device chunks.
-With a :class:`StreamingInput` the disk read overlaps too: segment bounds are
-found as bytes arrive, and the wait happens on the producer, never on the
-dispatch thread.
+With a :class:`StreamingInput` (or a :class:`BgzfInput`) the disk read (or
+the inflate) overlaps too: segment bounds are found as bytes arrive, and the
+wait happens on the producer, never on the dispatch thread.
 
 :func:`iter_card_chunks` decodes on the card instead, for a streaming input
 whose buffer is page-locked: the producer thread only finds the segment
@@ -28,7 +28,8 @@ from ..utils.profiling import carry, span
 
 from .chunks import (chunk_stream, frame_prepacked, iter_chunks_packed_lazy,
                      iter_chunks_prepacked)
-from .segments import StreamingInput, iter_segments_streaming, segment_record_bounds
+from .segments import (BgzfInput, StreamingInput, iter_segments_streaming,
+                       segment_record_bounds)
 
 TARGET_SEGMENT = 192 << 20  # raw bytes per steady-state segment
 QUEUE_DEPTH = 2  # produced segments held ahead of the consumer
@@ -82,7 +83,7 @@ def _ahead(produce: Callable[[], Optional[T]], name: str) -> Iterator[T]:
 
 
 def iter_pipelined_chunks(
-    data: Union[bytes, np.ndarray, StreamingInput],
+    data: Union[bytes, np.ndarray, StreamingInput, BgzfInput],
     kmer_len: int,
     chunk_windows: int,
     sink: dict,
@@ -97,7 +98,7 @@ def iter_pipelined_chunks(
     the native library (``io/native.py``)."""
     from ..io import native
 
-    if isinstance(data, StreamingInput):
+    if isinstance(data, (StreamingInput, BgzfInput)):
         buf = data.buf
         seg_iter = iter_segments_streaming(data, target_segment)
     else:
@@ -148,7 +149,7 @@ def iter_pipelined_chunks(
 
 
 def iter_card_chunks(
-    data: StreamingInput,
+    data: Union[StreamingInput, BgzfInput],
     kmer_len: int,
     chunk_windows: int,
     sink: dict,

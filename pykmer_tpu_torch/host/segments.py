@@ -1,4 +1,4 @@
-"""Record-aligned segments of a raw FASTA buffer, and the streaming reader.
+"""Record-aligned segments of a raw FASTA buffer, and the streaming inputs.
 
 Copies of ``_find_record_start``, ``_segment_targets``,
 ``_segment_record_bounds``, ``_StreamingInput`` and
@@ -8,6 +8,14 @@ imports jax), held against the originals by tests/test_torch_pipeline.py.
 Records never span segments and k-mer windows never span records, so each
 segment decodes and counts on its own: the basis of the pipelined input
 (``host/pipeline.py``).
+
+Beside the O_DIRECT reader of a plain file, :class:`BgzfInput` streams a
+BGZF file (what ``bgzip`` writes, usually named ``.gz``): :func:`read_bgzf`
+reads the compressed file whole and walks its block headers, and a pool of
+threads inflates runs of whole blocks, in file order, into one buffer at the
+offsets the blocks' ISIZEs give. Both share the surface the segment scan and
+the chunk producers read: ``buf``, ``size``, ``filled``, ``wait_until``,
+``input_checksum`` and ``release``.
 """
 
 from __future__ import annotations
@@ -15,7 +23,9 @@ from __future__ import annotations
 import hashlib
 import mmap
 import os
+import struct
 import threading
+import zlib
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -249,11 +259,266 @@ class StreamingInput:
         self.buf = None
 
 
+BGZF_MAGIC = b"\x1f\x8b\x08\x04"  # gzip, deflate, FEXTRA: a BGZF block's first bytes
+BGZF_MAX_ISIZE = 1 << 16  # a block inflates to at most 64 KiB (SAMv1 §4.1)
+INFLATE_EXTENT = 2 << 20  # inflated bytes a thread takes at a time, in whole blocks
+INFLATE_SPARE_CPUS = 2  # the cores the inflate pool leaves: input hash, dispatch
+_XLEN = struct.Struct("<H")
+_U32 = struct.Struct("<I")
+
+
+def inflate_threads() -> int:
+    """The inflate pool's size: the process's CPUs less
+    ``INFLATE_SPARE_CPUS``, at least 1."""
+    try:
+        cpus = len(os.sched_getaffinity(0))
+    except AttributeError:
+        cpus = os.cpu_count() or 1
+    return max(1, cpus - INFLATE_SPARE_CPUS)
+
+
+def _block_size(data, pos: int) -> Optional[int]:
+    """BSIZE of the BGZF block whose header starts at ``pos`` of ``data``
+    (its ``BC`` extra subfield, plus one), or None where no BGZF header
+    starts there."""
+    n = len(data)
+    if pos + 18 > n or bytes(data[pos:pos + 4]) != BGZF_MAGIC:
+        return None
+    (xlen,) = _XLEN.unpack_from(data, pos + 10)
+    p, end = pos + 12, min(pos + 12 + xlen, n)
+    while p + 4 <= end:
+        (slen,) = _XLEN.unpack_from(data, p + 2)
+        if bytes(data[p:p + 2]) == b"BC" and slen == 2 and p + 6 <= end:
+            bsize = _XLEN.unpack_from(data, p + 4)[0] + 1
+            return bsize if bsize >= 12 + xlen + 8 else None
+        p += 4 + slen
+    return None
+
+
+def is_bgzf(path: str) -> bool:
+    """Whether the file's first block has a BGZF header."""
+    with open(path, "rb") as fh:
+        head = fh.read(12 + 0xFFFF)  # the header and the largest extra field
+    return _block_size(head, 0) is not None
+
+
+class BgzfFile:
+    """A BGZF file read whole and walked: its compressed bytes ``data`` (a
+    pooled host block), the block starts ``c_offs`` in ``data`` and
+    ``u_offs`` in the inflated bytes, each with an end sentinel, and
+    ``size``, the inflated size."""
+
+    def __init__(self, path: str, data: np.ndarray, c_offs: np.ndarray,
+                 u_offs: np.ndarray):
+        self.path = path
+        self.data = data
+        self.c_offs = c_offs
+        self.u_offs = u_offs
+        self.size = int(u_offs[-1])
+
+
+def walk_bgzf(data: np.ndarray, path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(``c_offs``, ``u_offs``) of the BGZF bytes ``data``, as
+    :class:`BgzfFile` holds them. Raises IOError where a block has no BGZF
+    header, the file ends inside a block, or an ISIZE is above 64 KiB."""
+    n = data.shape[0]
+    mv = memoryview(data)
+    c, u = [0], [0]
+    pos = total = 0
+    while pos < n:
+        bsize = _block_size(mv, pos)
+        if bsize is None:
+            raise IOError(f"{path}: no BGZF block header at byte {pos}")
+        if pos + bsize > n:
+            raise IOError(f"{path}: truncated: the block at byte {pos} needs {bsize} "
+                          f"bytes, {n - pos} remain")
+        (isize,) = _U32.unpack_from(mv, pos + bsize - 4)
+        if isize > BGZF_MAX_ISIZE:
+            raise IOError(f"{path}: the block at byte {pos} claims {isize} bytes")
+        pos += bsize
+        total += isize
+        c.append(pos)
+        u.append(total)
+    return np.asarray(c, np.int64), np.asarray(u, np.int64)
+
+
+def read_bgzf(path: str) -> Optional[BgzfFile]:
+    """``path`` read whole (O_DIRECT) and walked, or None where its first
+    block has no BGZF header (a plain gzip member, or no gzip at all)."""
+    if not is_bgzf(path):
+        return None
+    from ..io.direct import read_file_into
+
+    size = os.path.getsize(path)
+    data = big_empty(size)[:size]
+    got = read_file_into(path, data)
+    if got != size:
+        raise IOError(f"{path}: short read ({got} of {size} bytes)")
+    return BgzfFile(path, data, *walk_bgzf(data, path))
+
+
+def inflate_blocks(comp: np.ndarray, out: np.ndarray, c_offs: np.ndarray,
+                   u_offs: np.ndarray) -> None:
+    """Inflate ``comp``, a run of whole BGZF blocks (itself a BGZF buffer),
+    into ``out`` on this thread through the native library's
+    ``gzip_decompress``, which checks each block's ISIZE; then check each
+    block's CRC32. ``c_offs`` and ``u_offs`` are the run's block starts in
+    ``comp`` and ``out``, with end sentinels. Raises IOError."""
+    from ..io import native
+
+    got = native._lib.gzip_decompress(comp.ctypes.data, comp.shape[0], out.ctypes.data,
+                                      out.shape[0], 1)
+    if got != out.shape[0]:
+        raise IOError(f"bad BGZF block in a run of {len(c_offs) - 1} "
+                      f"({got} of {out.shape[0]} bytes)")
+    for i in range(len(c_offs) - 1):
+        (crc,) = _U32.unpack_from(comp, int(c_offs[i + 1]) - 8)
+        if zlib.crc32(out[u_offs[i]:u_offs[i + 1]]) != crc:
+            raise IOError(f"BGZF block CRC mismatch at compressed byte {c_offs[i]} of a run")
+
+
+class BgzfInput:
+    """Background inflate of a walked BGZF file (:func:`read_bgzf`) into one
+    buffer, with :class:`StreamingInput`'s surface.
+
+    :func:`inflate_threads` threads each take the next run of whole blocks
+    of about ``INFLATE_EXTENT`` inflated bytes (both read when the input is
+    made, so tests can change them), in file order, inflate it into the
+    buffer (:func:`inflate_blocks`, the span "bgzf inflate",
+    counts ``blocks``, ``bytes_in`` and ``bytes``) and advance ``filled``
+    over the runs finished from the front; the segment scan chases it as it
+    chases the O_DIRECT reader, and ``wait_until`` records the span "inflate
+    wait" while it waits for blocks still inflating. A bad block raises
+    through ``wait_until``, never a short buffer. The input sha256 covers the
+    compressed bytes ("input sha256", bytes). The threads run at nice+10, so
+    the dispatch thread wins the cores.
+
+    The buffer is a pooled host block or, where ``card`` names a CUDA device,
+    the process's page-locked buffer (:data:`PINNED`), as the reader's."""
+
+    def __init__(self, src: BgzfFile, card=None):
+        self.size = src.size
+        self._src = src
+        self._path = src.path
+        self._card = card
+        self._pinned = PINNED.lease(self.size) if card is not None else None
+        self.buf = (self._pinned.array if self._pinned is not None
+                    else big_empty(max(self.size, 1)))[: self.size]
+        u = src.u_offs
+        n_blocks = u.shape[0] - 1
+        self._runs: List[Tuple[int, int]] = []
+        b = 0
+        while b < n_blocks:
+            e = min(max(int(np.searchsorted(u, u[b] + INFLATE_EXTENT)), b + 1), n_blocks)
+            self._runs.append((b, e))
+            b = e
+        self._next = 0  # the next run to hand out
+        self._done = [False] * len(self._runs)
+        self._front = 0  # runs finished from the front
+        self._cond = threading.Condition()
+        self._filled = 0
+        self._exc: Optional[BaseException] = None
+        self._stop = False
+        self._sha_hex: Optional[str] = None
+        n = min(inflate_threads(), len(self._runs))
+        # their spans record under the span open here
+        self._inflaters = [threading.Thread(target=carry(self._inflate), daemon=True,
+                                            name=f"bgzf-inflate_{i}") for i in range(n)]
+        for t in self._inflaters:
+            t.start()
+        self._hasher = threading.Thread(target=carry(self._hash), daemon=True,
+                                        name="input-hash")
+        self._hasher.start()
+
+    def _inflate(self) -> None:
+        renice_current_thread(10)
+        src, runs = self._src, self._runs
+        c, u = src.c_offs, src.u_offs
+        try:
+            while True:
+                with self._cond:
+                    if self._stop or self._exc is not None or self._next == len(runs):
+                        return
+                    r = self._next
+                    self._next += 1
+                b0, b1 = runs[r]
+                c0, c1, u0, u1 = int(c[b0]), int(c[b1]), int(u[b0]), int(u[b1])
+                with span("bgzf inflate", blocks=b1 - b0, bytes_in=c1 - c0, bytes=u1 - u0):
+                    # looked up at call time so tests can plant faults
+                    inflate_blocks(src.data[c0:c1], self.buf[u0:u1], c[b0:b1 + 1] - c0,
+                                   u[b0:b1 + 1] - u0)
+                with self._cond:
+                    self._done[r] = True
+                    while self._front < len(runs) and self._done[self._front]:
+                        self._front += 1
+                    self._filled = int(u[runs[self._front - 1][1]]) if self._front else 0
+                    self._cond.notify_all()
+        except BaseException as exc:  # surfaced by wait_until
+            with self._cond:
+                if self._exc is None:
+                    self._exc = exc
+                self._cond.notify_all()
+
+    def _hash(self) -> None:
+        renice_current_thread(10)
+        h = hashlib.sha256()
+        data = self._src.data
+        for lo in range(0, data.shape[0], 32 << 20):
+            if self._stop:
+                return
+            hi = min(data.shape[0], lo + (32 << 20))
+            with span("input sha256", bytes=hi - lo):
+                h.update(data[lo:hi])
+        self._sha_hex = h.hexdigest()
+
+    def filled(self) -> int:
+        with self._cond:
+            return self._filled
+
+    def wait_until(self, pos: int) -> None:
+        """Block until ``pos`` bytes are inflated; raise the inflate's error
+        once there is one, wherever ``pos`` lies, as the buffer will never
+        fill."""
+        with self._cond:
+            if self._filled < pos and self._exc is None:
+                with span("inflate wait"):
+                    while self._filled < pos and self._exc is None:
+                        self._cond.wait()
+            if self._exc is not None:
+                raise self._exc
+
+    def input_checksum(self) -> str:
+        self._hasher.join()
+        if self._sha_hex is None:
+            raise RuntimeError(f"{self._path}: input hash thread died")
+        return self._sha_hex
+
+    def release(self) -> None:
+        """Stop the inflate threads and the hasher (each ends at its next
+        run or piece), then give the buffer back; ``buf`` is not to be read
+        after this. A second call does nothing."""
+        if self.buf is None:
+            return
+        with self._cond:
+            self._stop = True
+        for t in self._inflaters:
+            t.join()
+        self._hasher.join()
+        if self._pinned is not None:
+            import torch
+
+            torch.cuda.synchronize(self._card)  # no copy from the buffer in flight
+            PINNED.give_back()
+            self._pinned = None
+        self.buf = self._src = None
+
+
 def iter_segments_streaming(
-    stream: StreamingInput, target: int, wait_slack: int = 8 << 20
+    stream: "StreamingInput | BgzfInput", target: int, wait_slack: int = 8 << 20
 ) -> Iterator[Tuple[int, int]]:
-    """Yield (lo, hi) record-aligned segment bounds, chasing the reader; the
-    same bounds as :func:`segment_record_bounds` on the whole buffer.
+    """Yield (lo, hi) record-aligned segment bounds, chasing the reader (or
+    the inflate); the same bounds as :func:`segment_record_bounds` on the
+    whole buffer.
 
     ``wait_slack`` is how far past the scan point each wait asks the reader
     to fill (small values force the partial-fill rescan in tests)."""

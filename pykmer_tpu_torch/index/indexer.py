@@ -12,11 +12,13 @@ keys-only sort, valid-window count). Two strategies apply the sorted codes:
 
 On the device strategy the input is pipelined: a plain file streams from disk
 while it is hashed, decoded segment by segment and uploaded
-(``host/pipeline.py``); on a CUDA device it streams into page-locked memory,
-each segment's raw bytes go to the card, and the card decodes them
-(``iter_card_chunks``, ``ops/fasta.py``). Compressed files and stdin are read
-whole and then pipelined with the host decode. The host strategy decodes the
-whole input first. Uploads go through
+(``host/pipeline.py``), and a BGZF file (what ``bgzip`` writes, ``.gz`` or
+``.bgz``) streams out of a pool of inflate threads while its compressed bytes
+are hashed (``host/segments.BgzfInput``); on a CUDA device either streams into
+page-locked memory, each segment's raw bytes go to the card, and the card
+decodes them (``iter_card_chunks``, ``ops/fasta.py``). Other gzip files and
+stdin are read whole and then pipelined with the host decode. The host
+strategy decodes the whole input first. Uploads go through
 a ring of pinned staging buffers. :func:`choose_tail` picks the readback
 tail (``ops/readback.py``: the chased copy, unfold, write and hash), and
 :func:`write_kin`, the sharded index's finish too, runs it: raw, a
@@ -54,7 +56,7 @@ from .. import resolve_device
 from ..host.chunks import chunk_stream, iter_chunks_packed_lazy
 from ..host.decode import decode_joined_bytes
 from ..host.pipeline import iter_card_chunks, iter_pipelined_chunks
-from ..host.segments import StreamingInput
+from ..host.segments import BgzfInput, StreamingInput, read_bgzf
 from ..ops.encode import canonical_codes_packed
 from ..ops import packing
 from ..ops.histogram import sort_codes_fast
@@ -106,11 +108,19 @@ def create_fasta_index(
     """
     device = resolve_device(device)
     from_stdin = input_file is None or input_file == "-"
-    hint = None
+    have_native = _have_native()
+    stages = StageTimer()
+    hint = bgzf = None
     if not from_stdin and os.path.exists(input_file):
         hint = os.path.getsize(input_file)
         if input_file.endswith((".gz", ".bgz")):
-            hint *= 4  # conservative decompression ratio for base data
+            if have_native and hint > 0:
+                # a BGZF file is read whole and walked here, for its size;
+                # it streams below unless the route takes read_input
+                with stages.stage("input read"):
+                    bgzf = read_bgzf(input_file)
+            # else a conservative decompression ratio for base data
+            hint = bgzf.size if bgzf is not None else hint * 4
     config = resolve_chunk_windows(
         config or IndexConfig(kmer_len=kmer_len), device, input_hint_bytes=hint
     )
@@ -141,14 +151,14 @@ def create_fasta_index(
         free = torch.cuda.mem_get_info(device)[0]
     strategy = resolve_strategy(kmer_len, config.accumulate, device.type, free,
                                 config.chunk_windows)
-    have_native = _have_native()
     plain = input_file is not None and not input_file.endswith((".gz", ".bgz"))
-    streaming = (strategy == "device" and have_native and plain
-                 and os.path.getsize(input_file) > 0)
+    streaming = strategy == "device" and have_native and (
+        bgzf.size > 0 if bgzf is not None else plain and os.path.getsize(input_file) > 0)
+    if not streaming:
+        bgzf = None  # read_input reads the file again
     # a streaming input to a card is decoded there
     card = streaming and device.type == "cuda"
 
-    stages = StageTimer()
     timer = header.timer
     cw = config.chunk_windows
     # a torch.profiler trace of the pipeline, with the worker threads'
@@ -156,10 +166,12 @@ def create_fasta_index(
     with device_trace(stages=stages), ThreadPoolExecutor(1) as hash_pool, \
             contextlib.ExitStack() as held:
         if streaming:
-            # the reader and input-hash threads start here; decode and
-            # uploads chase them
+            # the reader (or inflate) and input-hash threads start here;
+            # decode and uploads chase them
             with stages.stage("input read"):
-                data = StreamingInput(input_file, card=device if card else None)
+                data = StreamingInput(input_file, card=device if card else None) \
+                    if bgzf is None else BgzfInput(bgzf, card=device if card else None)
+            del bgzf  # the compressed bytes live as long as the input
             held.callback(data.release)  # on an error too: the buffer is the pool's
 
             def input_checksum() -> str:

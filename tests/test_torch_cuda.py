@@ -802,6 +802,52 @@ def test_streaming_index_decodes_on_card(cuda, tmp_path, monkeypatch):
     assert card == again == _kin(header)
 
 
+def test_bgzf_index_decodes_on_card(cuda, tmp_path, monkeypatch):
+    """K=11 on the card, a 40-record BGZF ``.fa.gz`` in several segments: it
+    streams out of the inflate pool into the card decode ("card decode" and
+    "bgzf inflate" bytes = the inflated size, no host "decode", "input
+    sha256" bytes = the compressed file's), gives the page-locked buffer
+    back, and its `.kin` equals the plain file's."""
+    import functools
+    import hashlib
+    import json
+
+    from pykmer_tpu_torch.host import segments
+    from pykmer_tpu_torch.index import indexer
+    from pykmer_tpu_torch.io import bgzf
+    from pykmer_tpu_torch.utils import profiling
+
+    fasta = _genome(str(tmp_path / "b.fa"), np.random.default_rng(9), n_records=40,
+                    length=20_000)
+    gz = bgzf.compress_file(fasta, str(tmp_path / "b2.fa.gz"), write_index=False)[0]
+    monkeypatch.setattr(indexer, "iter_card_chunks", functools.partial(
+        indexer.iter_card_chunks, target_segment=100_000))
+    monkeypatch.setattr(segments, "INFLATE_EXTENT", 150_000)
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 16)
+    plain = _kin(create_fasta_index(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                    device=cuda))
+    fasta_ops.LAUNCHES = 0
+    header = create_fasta_index(gz, "s", gz, 11, config=cfg, verbose=False, device=cuda)
+    with open(header.metadata_file) as fh:
+        meta = json.load(fh)
+    with open(gz, "rb") as fh:
+        assert meta["input_file_cheksum"] == hashlib.sha256(fh.read()).hexdigest()
+    assert _kin(header) == plain and len(header.chromosomes) == 40
+    spans = profiling.FINISHED_RUNS[-1].spans
+    decodes = [s for s in spans if s.name == "card decode"]
+    assert len(decodes) == fasta_ops.LAUNCHES > 3
+    assert sum(s.counts["bytes"] for s in decodes) == os.path.getsize(fasta)
+    assert not [s for s in spans if s.name == "decode"]
+    inflates = [s for s in spans if s.name == "bgzf inflate"]
+    assert len(inflates) > 3
+    assert sum(s.counts["bytes"] for s in inflates) == os.path.getsize(fasta)
+    assert sum(s.counts["bytes_in"] for s in inflates) == os.path.getsize(gz)
+    assert sum(s.counts["bytes"] for s in spans if s.name == "input sha256") \
+        == os.path.getsize(gz)
+    assert segments.PINNED._buf is not None and not segments.PINNED._leased
+
+
 def test_pinned_pool_refuses_a_second_lease(cuda, tmp_path):
     """The page-locked buffer serves one streaming input at a time: a second
     input before the first is released is refused, and once it is released
