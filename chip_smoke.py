@@ -70,6 +70,16 @@ Phases — each one passes or raises, and any failure exits non-zero:
    equal; each one's median time beside its byte bound (the slice's folded
    cells read once and its bytes written once, at 3.35 TB/s), and the plain
    version's;
+4d. a BGZF copy of the genome (what bgzip writes) through
+   ``create_fasta_index`` on the card, which inflates its blocks there
+   (``ops/inflate.inflate_bgzf``, ``csrc/inflate.cu``): the `.kin` sha256
+   phase 4's, the input sha256 the compressed file's, one inflate launch
+   for each run of ``host/segments.bgzf_runs`` and every ``bgzf inflate``
+   span's blocks counted as the card's; then the kernel over every block of
+   the file in one launch against the host's zlib on the same bytes, output
+   and statuses equal, its median time beside its byte bound (the
+   compressed bytes read once and the inflated bytes written once, at
+   3.35 TB/s) and zlib's on one host thread;
 4b. the genome at K=15 in this process through ``create_fasta_index`` with
    ``IndexConfig(readback=...)`` raw, packed, 2bit, 3bit, sparse, raw again:
    each `.kin` sha256 phase 4's, each stage table logged, and whether the
@@ -153,11 +163,12 @@ Phases — each one passes or raises, and any failure exits non-zero:
    K=17 its peak device memory and peak host RSS. A worker that fails or
    times out fails the phase, and every worker is reaped;
 12. a JSON line of the kernels (the sweep's four rows, the encode
-   kernels' four, the FASTA decode's one, the unfold's one), then the last line
+   kernels' four, the FASTA decode's one, the unfold's one, the inflate's
+   one), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2b runs after phase 2, then 2c; 4c inside phase 4, after its readback
-modes; phases 7-9 between phases 2c and 3
+modes; 4d after phase 4a and the gzip copy; phases 7-9 between phases 2c and 3
 (7, with 10c) and after phase 5b (8, 9); 10a and 10d run after phase 9, 10b
 after phase 6b, 11 after 10b. The script exits non-zero, printing no result, where CUDA is unavailable or
 outside a checkout of the repository. It never imports jax. Scratch files go
@@ -1005,6 +1016,93 @@ def phase_k15_variants(work, dev, genome, total_bp, want_sha, cw):
             raise AssertionError(f"K={k} {label}: {sweep.LAUNCHES} sweep and "
                                  f"{encode.LAUNCHES} encode launches")
     return gz
+
+
+def phase_bgzf(work, dev, genome, total_bp, want_sha):
+    """Phase 4d: a BGZF copy of the genome (``io/bgzf.compress_file``, what
+    bgzip writes) through ``create_fasta_index`` on the card, which inflates
+    its blocks there (``host/segments.BgzfInput`` → ``ops/inflate`` →
+    ``csrc/inflate.cu``): the `.kin` sha256 phase 4's, the input sha256 the
+    compressed file's, one inflate launch for each run of
+    ``segments.bgzf_runs`` and every ``bgzf inflate`` span's blocks on the
+    card. Then the kernel over every block of the file in one launch against
+    the host's zlib (``segments.inflate_blocks``) on the same bytes: output
+    and statuses equal; its median ms beside its byte bound (the compressed
+    file read once and the inflated bytes written once, at 3.35 TB/s) and
+    the host's zlib on one thread. Returns (launches, (max abs err, ms,
+    zlib ms, bound ms))."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pykmer_tpu_torch.host import segments
+    from pykmer_tpu_torch.io import bgzf
+    from pykmer_tpu_torch.ops import inflate
+    from pykmer_tpu_torch.utils import profiling
+
+    k = SLICE_K
+    gz = os.path.join(work, "genome_bgzf.fa.gz")
+    t0 = time.perf_counter()
+    bgzf.compress_file(genome, gz, write_index=False)
+    src = segments.read_bgzf(gz)
+    n_blocks = src.c_offs.shape[0] - 1
+    runs = segments.bgzf_runs(src.u_offs, segments.INFLATE_EXTENT,
+                              max(segments.INFLATE_EXTENT, src.size // 8))
+    log(f"BGZF copy: {os.path.getsize(gz)} bytes, {n_blocks} blocks, {src.size} bytes "
+        f"inflated, in {time.perf_counter() - t0:.1f} s (set-up); the card route's runs: "
+        f"{len(runs)}")
+
+    inflate.LAUNCHES = 0
+    wall, table, meta = index_in_process(gz, k, dev, "auto")
+    launches = inflate.LAUNCHES
+    spans = [s for s in profiling.FINISHED_RUNS[-1].spans if s.name == "bgzf inflate"]
+    log(table)
+    log(f"index K={k}, BGZF input: {total_bp} bp in {wall:.3f} s = {total_bp / wall:.0f} bp/s "
+        f"(verify on), {launches} inflate launches, {len(spans)} bgzf inflate spans, output "
+        f"sha256 {meta['output_file_cheksum']}")
+    if meta["output_file_cheksum"] != want_sha:
+        raise AssertionError(f"K={k} BGZF input: .kin sha256 differs from phase 4's")
+    with open(gz, "rb") as fh:
+        if meta["input_file_cheksum"] != hashlib.sha256(fh.read()).hexdigest():
+            raise AssertionError(f"K={k} BGZF input: the input sha256 is not the file's")
+    if launches != len(runs) or len(spans) != len(runs):
+        raise AssertionError(f"the card inflate launched {launches} times in {len(spans)} "
+                             f"spans for {len(runs)} runs")
+    if (sum(s.counts.get("card_blocks", 0) for s in spans) != n_blocks
+            or sum(s.counts["blocks"] for s in spans) != n_blocks
+            or sum(s.counts["bytes"] for s in spans) != src.size):
+        raise AssertionError(f"the bgzf inflate spans count {[s.counts for s in spans]}")
+
+    want = np.empty(src.size, dtype=np.uint8)
+    t0 = time.perf_counter()
+    segments.inflate_blocks(src.data, want, src.c_offs, src.u_offs)
+    zlib_ms = (time.perf_counter() - t0) * 1e3
+    n = src.data.shape[0]
+    comp = torch.zeros(-(-n // 4) * 4, dtype=torch.uint8, device=dev)
+    comp[:n].copy_(torch.from_numpy(src.data))
+    c_offs = torch.from_numpy(src.c_offs).to(dev)
+    u_offs = torch.from_numpy(src.u_offs).to(dev)
+    out = torch.empty(src.size, dtype=torch.uint8, device=dev)
+    status = torch.full((n_blocks,), -1, dtype=torch.int32, device=dev)
+    inflate.inflate_bgzf(comp, c_offs, u_offs, out, status)
+    bad = int((status != inflate.OK).sum())
+    got = out.cpu().numpy()
+    if bad or not np.array_equal(got, want):
+        raise AssertionError(f"the card inflate of the whole file: {bad} blocks not ok, output "
+                             f"equal to zlib's {np.array_equal(got, want)}")
+    err = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()) if src.size else 0
+    del got, want
+    ms = median_ms(lambda: inflate.inflate_bgzf(comp, c_offs, u_offs, out, status), 10)
+    bound = (n + src.size) / H100_SXM_BYTES_PER_S * 1e3
+    log(f"inflate of the BGZF copy, {n_blocks} blocks in one launch: card == zlib, every status "
+        f"ok; median {ms:.4f} ms ({src.size / ms / 1e6:.2f} GB/s inflated); bound {bound:.4f} ms "
+        f"({n} bytes read once and {src.size} written once at {H100_SXM_BYTES_PER_S / 1e12} "
+        f"TB/s); at {bound / ms:.4f} of its bound; zlib on one host thread {zlib_ms:.1f} ms")
+    del comp, out, status
+    os.remove(gz)
+    torch.cuda.empty_cache()
+    return launches, (err, ms, zlib_ms, bound)
 
 
 def phase_k17_oracle(work, dev, fa):
@@ -2003,6 +2101,7 @@ def main():
             sha, choice, unf_times = phase_slice(work, dev)
         dec_times = phase_fasta(dev, genome, cw)
         gz = phase_k15_variants(work, dev, genome, total_bp, sha, cw)
+        inf_launches, inf_times = phase_bgzf(work, dev, genome, total_bp, sha)
         phase_k15_modes(dev, genome, total_bp, sha, choice)
         log(format_table(step_times(dev, chunks[len(chunks) // 2], SLICE_K, cw)))
         del chunks
@@ -2110,6 +2209,24 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         # no PyTorch call unfolds a folded canonical plane
+        "library_ms": None,
+    })
+    # launches: phase 4d's index of the BGZF copy; times: its whole file in one launch
+    err, ms, plain_ms, bound_ms = inf_times
+    kernels.append({
+        "name": "inflate_kernel",
+        "route": "cuda",
+        "source": "pykmer_tpu_torch/csrc/inflate.cu",
+        # the JAX package inflates a gzip input on the host, with zlib
+        "replaces": "pykmer_tpu/native/pykmer_native.cpp:288",
+        "launches": inf_launches,
+        "max_abs_err": err,
+        "ms": ms,
+        # its plain version is the host's zlib, on one thread
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        # no PyTorch call inflates DEFLATE
         "library_ms": None,
     })
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

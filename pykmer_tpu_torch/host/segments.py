@@ -11,11 +11,13 @@ segment decodes and counts on its own: the basis of the pipelined input
 
 Beside the O_DIRECT reader of a plain file, :class:`BgzfInput` streams a
 BGZF file (what ``bgzip`` writes, usually named ``.gz``): :func:`read_bgzf`
-reads the compressed file whole and walks its block headers, and a pool of
-threads inflates runs of whole blocks, in file order, into one buffer at the
-offsets the blocks' ISIZEs give. Both share the surface the segment scan and
-the chunk producers read: ``buf``, ``size``, ``filled``, ``wait_until``,
-``input_checksum`` and ``release``.
+reads the compressed file whole and walks its block headers, and runs of
+whole blocks are inflated, in file order, into one buffer at the offsets the
+blocks' ISIZEs give: by a pool of threads through zlib, or, for an input
+bound for a card, on that card (``ops/inflate`` → ``csrc/inflate.cu``). Both
+inputs share the surface the segment scan and the chunk producers read:
+``buf``, ``size``, ``filled``, ``wait_until``, ``input_checksum`` and
+``release``.
 """
 
 from __future__ import annotations
@@ -357,6 +359,38 @@ def read_bgzf(path: str) -> Optional[BgzfFile]:
     return BgzfFile(path, data, *walk_bgzf(data, path))
 
 
+def bgzf_runs(u_offs: np.ndarray, first: int, most: int) -> List[Tuple[int, int]]:
+    """Runs (b0, b1) of whole blocks in file order, given the blocks'
+    starts ``u_offs`` in the inflated bytes (with the end sentinel): the
+    first run of about ``first`` inflated bytes, each next of twice the last,
+    up to ``most``; every run holds at least one block."""
+    n_blocks = u_offs.shape[0] - 1
+    runs: List[Tuple[int, int]] = []
+    b, extent = 0, first
+    while b < n_blocks:
+        e = min(max(int(np.searchsorted(u_offs, u_offs[b] + extent)), b + 1), n_blocks)
+        runs.append((b, e))
+        b = e
+        extent = min(2 * extent, most)
+    return runs
+
+
+# the card inflate's stream of each card, kept for the process so that its
+# buffers' cached blocks serve the next input; one card input runs at a time
+# (it holds the page-locked lease)
+_CARD_STREAMS: dict = {}
+
+
+def _card_stream():
+    """The card inflate's stream on the current card."""
+    import torch
+
+    key = torch.cuda.current_device()
+    if key not in _CARD_STREAMS:
+        _CARD_STREAMS[key] = torch.cuda.Stream()
+    return _CARD_STREAMS[key]
+
+
 def inflate_blocks(comp: np.ndarray, out: np.ndarray, c_offs: np.ndarray,
                    u_offs: np.ndarray) -> None:
     """Inflate ``comp``, a run of whole BGZF blocks (itself a BGZF buffer),
@@ -381,17 +415,26 @@ class BgzfInput:
     """Background inflate of a walked BGZF file (:func:`read_bgzf`) into one
     buffer, with :class:`StreamingInput`'s surface.
 
-    :func:`inflate_threads` threads each take the next run of whole blocks
-    of about ``INFLATE_EXTENT`` inflated bytes (both read when the input is
-    made, so tests can change them), in file order, inflate it into the
-    buffer (:func:`inflate_blocks`, the span "bgzf inflate",
-    counts ``blocks``, ``bytes_in`` and ``bytes``) and advance ``filled``
-    over the runs finished from the front; the segment scan chases it as it
-    chases the O_DIRECT reader, and ``wait_until`` records the span "inflate
-    wait" while it waits for blocks still inflating. A bad block raises
-    through ``wait_until``, never a short buffer. The input sha256 covers the
-    compressed bytes ("input sha256", bytes). The threads run at nice+10, so
-    the dispatch thread wins the cores.
+    Without a card, :func:`inflate_threads` threads each take the next run
+    of whole blocks of about ``INFLATE_EXTENT`` inflated bytes (both read
+    when the input is made, so tests can change them), in file order,
+    inflate it into the buffer (:func:`inflate_blocks`) and advance
+    ``filled`` over the runs finished from the front. Where ``card`` names
+    a CUDA device, one thread walks runs that grow from ``INFLATE_EXTENT``
+    to an eighth of the file (:func:`bgzf_runs`), and inflates each on the
+    card: the run's compressed bytes copied there, ``ops/inflate``'s kernel
+    (which checks each block's CRC32 and ISIZE) on a stream of its own, the
+    result copied into the buffer, then ``filled`` advanced over it. Each
+    run is the span "bgzf inflate", counts ``blocks``, ``bytes_in`` and
+    ``bytes``, and on the card ``card_blocks`` (= ``blocks``). The segment
+    scan chases ``filled`` as it chases the O_DIRECT reader, and
+    ``wait_until`` records the span "inflate wait" while it waits for blocks
+    still inflating. A bad block raises through ``wait_until``, never a
+    short buffer; a block the card reports bad is inflated again on the
+    host, whose error is raised, or, where the host inflates it, an error
+    that names the block. The input sha256 covers the compressed bytes
+    ("input sha256", bytes). The threads run at nice+10, so the dispatch
+    thread wins the cores.
 
     The buffer is a pooled host block or, where ``card`` names a CUDA device,
     the process's page-locked buffer (:data:`PINNED`), as the reader's."""
@@ -404,14 +447,11 @@ class BgzfInput:
         self._pinned = PINNED.lease(self.size) if card is not None else None
         self.buf = (self._pinned.array if self._pinned is not None
                     else big_empty(max(self.size, 1)))[: self.size]
-        u = src.u_offs
-        n_blocks = u.shape[0] - 1
-        self._runs: List[Tuple[int, int]] = []
-        b = 0
-        while b < n_blocks:
-            e = min(max(int(np.searchsorted(u, u[b] + INFLATE_EXTENT)), b + 1), n_blocks)
-            self._runs.append((b, e))
-            b = e
+        # the card's runs double from INFLATE_EXTENT up to an eighth of the
+        # file: the first lands early, the later ones launch many blocks at
+        # once, and a small file still streams in several runs
+        self._runs = bgzf_runs(src.u_offs, INFLATE_EXTENT, INFLATE_EXTENT if card is None
+                               else max(INFLATE_EXTENT, self.size // 8))
         self._next = 0  # the next run to hand out
         self._done = [False] * len(self._runs)
         self._front = 0  # runs finished from the front
@@ -420,15 +460,26 @@ class BgzfInput:
         self._exc: Optional[BaseException] = None
         self._stop = False
         self._sha_hex: Optional[str] = None
-        n = min(inflate_threads(), len(self._runs))
         # their spans record under the span open here
-        self._inflaters = [threading.Thread(target=carry(self._inflate), daemon=True,
-                                            name=f"bgzf-inflate_{i}") for i in range(n)]
+        if card is not None:
+            self._inflaters = [threading.Thread(target=carry(self._inflate_on_card),
+                                                daemon=True, name="bgzf-inflate_card")]
+        else:
+            n = min(inflate_threads(), len(self._runs))
+            self._inflaters = [threading.Thread(target=carry(self._inflate), daemon=True,
+                                                name=f"bgzf-inflate_{i}") for i in range(n)]
         for t in self._inflaters:
             t.start()
         self._hasher = threading.Thread(target=carry(self._hash), daemon=True,
                                         name="input-hash")
         self._hasher.start()
+
+    def _fail(self, exc: BaseException) -> None:
+        """Keep the first inflate error, for wait_until to raise."""
+        with self._cond:
+            if self._exc is None:
+                self._exc = exc
+            self._cond.notify_all()
 
     def _inflate(self) -> None:
         renice_current_thread(10)
@@ -453,11 +504,60 @@ class BgzfInput:
                         self._front += 1
                     self._filled = int(u[runs[self._front - 1][1]]) if self._front else 0
                     self._cond.notify_all()
-        except BaseException as exc:  # surfaced by wait_until
-            with self._cond:
-                if self._exc is None:
-                    self._exc = exc
-                self._cond.notify_all()
+        except BaseException as exc:
+            self._fail(exc)
+
+    def _inflate_on_card(self) -> None:
+        import torch
+
+        # looked up at call time so tests can plant faults
+        from ..ops import inflate as card
+
+        renice_current_thread(10)
+        src, runs, dev = self._src, self._runs, self._card
+        c, u = src.c_offs, src.u_offs
+        try:
+            with torch.cuda.device(dev):
+                stream = _card_stream()
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                c_dev, u_dev = torch.from_numpy(c).to(dev), torch.from_numpy(u).to(dev)
+                comp = torch.empty(-(-max(int(c[b1] - c[b0]) for b0, b1 in runs) // 4) * 4,
+                                   dtype=torch.uint8, device=dev)
+                out = torch.empty(max(int(u[b1] - u[b0]) for b0, b1 in runs),
+                                  dtype=torch.uint8, device=dev)
+                status = torch.empty(c.shape[0] - 1, dtype=torch.int32, device=dev)
+                status_host = torch.empty(c.shape[0] - 1, dtype=torch.int32, pin_memory=True)
+                host_comp, host_out = torch.from_numpy(src.data), torch.from_numpy(self.buf)
+                done = torch.cuda.Event()
+                for b0, b1 in runs:
+                    if self._stop:
+                        return
+                    c0, c1, u0, u1 = int(c[b0]), int(c[b1]), int(u[b0]), int(u[b1])
+                    with span("bgzf inflate", blocks=b1 - b0, bytes_in=c1 - c0, bytes=u1 - u0,
+                              card_blocks=b1 - b0):
+                        comp[: c1 - c0].copy_(host_comp[c0:c1], non_blocking=True)
+                        card.inflate_bgzf(comp, c_dev[b0:b1 + 1], u_dev[b0:b1 + 1], out,
+                                          status[b0:b1], c_base=c0, u_base=u0)
+                        host_out[u0:u1].copy_(out[: u1 - u0], non_blocking=True)
+                        status_host[b0:b1].copy_(status[b0:b1], non_blocking=True)
+                        done.record(stream)
+                        done.synchronize()
+                    bad = np.flatnonzero(status_host[b0:b1].numpy())
+                    if bad.size:
+                        b = b0 + int(bad[0])
+                        # the host's inflate of the run raises its own error
+                        inflate_blocks(src.data[c0:c1], self.buf[u0:u1], c[b0:b1 + 1] - c0,
+                                       u[b0:b1 + 1] - u0)
+                        raise IOError(
+                            f"{self._path}: the card's inflate of the BGZF block at compressed "
+                            f"byte {c[b]} (block {b}) reports "
+                            f"{card.STATUS.get(int(status_host[b]), 'an unknown status')}, "
+                            "but the host's zlib inflates it")
+                    with self._cond:
+                        self._filled = u1
+                        self._cond.notify_all()
+        except BaseException as exc:
+            self._fail(exc)
 
     def _hash(self) -> None:
         renice_current_thread(10)

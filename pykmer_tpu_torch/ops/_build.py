@@ -94,6 +94,9 @@ def _bind(lib: ctypes.CDLL) -> None:
                                ptr, ptr, ptr, ptr, ptr],
         # (folded from cell c0, c0, out, a, n, K, counts or NULL, stream)
         "pykmer_unfold_file": [ptr, i64, ptr, i64, i64, i64, ptr, ptr],
+        # (comp, bytes, c_offs, u_offs, n_blocks, c_base, u_base, out, bytes,
+        #  status, stream)
+        "pykmer_inflate_bgzf": [ptr, i64, ptr, ptr, i64, i64, i64, ptr, i64, ptr, ptr],
     }
     for name, argtypes in untyped.items():
         fn = getattr(lib, name)

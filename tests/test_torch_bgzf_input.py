@@ -356,6 +356,7 @@ def test_bgzf_span_counts_add_up(tmp_path, monkeypatch):
     assert sum(s.counts["bytes"] for s in inflate) == len(plain)
     assert sum(s.counts["bytes_in"] for s in inflate) == os.path.getsize(gz)
     assert sum(s.counts["blocks"] for s in inflate) == -(-len(plain) // 900) + 1
+    assert not [s for s in inflate if "card_blocks" in s.counts]  # the pool's, not the card's
     assert {s.thread.split("_")[0] for s in inflate} == {"bgzf-inflate"}
     assert {s.parent.name for s in inflate} == {"input read"}
     assert sum(s.counts["bytes"] for s in by["input sha256"]) == os.path.getsize(gz)
@@ -364,3 +365,84 @@ def test_bgzf_span_counts_add_up(tmp_path, monkeypatch):
     assert {s.parent.name for s in by["inflate wait"]} == {"input wait"}
     assert not by["card decode"]
     assert [name for name, _ in run.stages][:2] == ["input read", "input read"]
+
+
+# ---- the runs, the pool's route and the card's wrapper ------------------------
+
+@pytest.mark.parametrize("first,most", [(2000, 2000), (1500, 9000), (1, 1), (700, 1 << 30)])
+def test_bgzf_runs_tile_the_blocks_and_ramp(tmp_path, first, most):
+    _, plain = _fasta(tmp_path, n_records=80)
+    src = tseg.read_bgzf(_write(str(tmp_path / "r.fa.gz"), bgzip(plain, block=300)))
+    u = src.u_offs
+    runs = tseg.bgzf_runs(u, first, most)
+    assert runs[0][0] == 0 and runs[-1][1] == len(u) - 1
+    assert all(b0 < b1 for b0, b1 in runs)
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    extent = first
+    for b0, b1 in runs[:-1]:
+        # the fewest whole blocks that reach the run's extent
+        assert u[b1] - u[b0] >= extent and (b1 - b0 == 1 or u[b1 - 1] - u[b0] < extent)
+        extent = min(2 * extent, most)
+
+
+def test_pool_route_without_a_card(tmp_path, monkeypatch):
+    """Without a card the input keeps the zlib pool: its threads, and runs
+    of one size, ``INFLATE_EXTENT``."""
+    _, plain = _fasta(tmp_path)
+    gz = _write(str(tmp_path / "p.fa.gz"), bgzip(plain, block=500))
+    stream = _source(monkeypatch, gz, 3, 2000)
+    try:
+        assert [t.name for t in stream._inflaters] == [f"bgzf-inflate_{i}" for i in range(3)]
+        assert stream._runs == tseg.bgzf_runs(stream._src.u_offs, 2000, 2000)
+        stream.wait_until(stream.size)
+        assert stream.buf.tobytes() == plain
+    finally:
+        stream.release()
+
+
+def test_card_inflate_refuses_cpu_tensors():
+    import torch
+
+    from pykmer_tpu_torch.ops import inflate
+
+    offs = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        inflate.inflate_bgzf(torch.zeros(64, dtype=torch.uint8), offs, offs,
+                             torch.zeros(8, dtype=torch.uint8),
+                             torch.zeros(1, dtype=torch.int32))
+    assert inflate.LAUNCHES == 0
+
+
+def _case_names():
+    from bgzf_cases import cases
+
+    return sorted(cases())
+
+
+@pytest.mark.parametrize("case", _case_names())
+def test_host_inflate_of_every_deflate_form(tmp_path, monkeypatch, case):
+    """The pool inflates every DEFLATE form of ``tests/bgzf_cases.py`` (the
+    card tests' cases) to what ``gzip`` gives."""
+    from bgzf_cases import bgzf_bytes, cases
+
+    data = bgzf_bytes(cases()[case])
+    stream = _source(monkeypatch, _write(str(tmp_path / "f.gz"), data), 2, 1)
+    try:
+        stream.wait_until(stream.size)
+        assert stream.buf.tobytes() == gzip.decompress(data)
+    finally:
+        stream.release()
+
+
+@pytest.mark.parametrize("what", ["crc", "isize", "stream", "truncated"])
+def test_host_inflate_raises_on_every_planted_fault(tmp_path, monkeypatch, what):
+    from bgzf_cases import bgzf_bytes, cases, corrupt
+
+    data = corrupt(bgzf_bytes(cases()["dynamic_level6"] * 3), what, 1)
+    stream = _source(monkeypatch, _write(str(tmp_path / "b.gz"), data), 2, 1)
+    try:
+        with pytest.raises(IOError):
+            stream.wait_until(stream.size)
+        assert stream.filled() <= 65280
+    finally:
+        stream.release()

@@ -1101,3 +1101,187 @@ def test_k15_index_unfolds_on_card_in_file_order(cuda, tmp_path, monkeypatch):
     assert n_g == 2 * half // readback.SLICE_CELLS
     assert cells_g == card_g == half
     assert sum(hashes) == 2 * half and max(hashes) <= readback.SLICE_CELLS
+
+
+# ---- the BGZF inflate on the card (csrc/inflate.cu) -------------------------
+
+def _card_inflate(data: bytes, device):
+    """``data``'s BGZF blocks inflated by the kernel: (statuses, bytes)."""
+    from bgzf_cases import walk
+
+    from pykmer_tpu_torch.ops import inflate
+
+    c, u = walk(data)
+    padded = data + bytes(-len(data) % 4)
+    comp = torch.frombuffer(bytearray(padded), dtype=torch.uint8).to(device)
+    out = torch.full((u[-1] + 64,), 0xEE, dtype=torch.uint8, device=device)
+    status = torch.full((len(c) - 1,), -1, dtype=torch.int32, device=device)
+    before = inflate.LAUNCHES
+    inflate.inflate_bgzf(comp, torch.tensor(c, device=device), torch.tensor(u, device=device),
+                         out[: u[-1]], status)
+    torch.cuda.synchronize()
+    assert inflate.LAUNCHES == before + 1
+    tail = out[u[-1]:].cpu()
+    assert bool((tail == 0xEE).all())  # nothing written past the blocks
+    return status.cpu().tolist(), out[: u[-1]].cpu().numpy().tobytes()
+
+
+def _inflate_case_names():
+    from bgzf_cases import cases
+
+    return sorted(cases())
+
+
+@pytest.mark.parametrize("case", _inflate_case_names())
+def test_inflate_kernel_equals_zlib(cuda, case):
+    """Every DEFLATE form, byte for byte against zlib, each block's status
+    ok, the EOF block included."""
+    from bgzf_cases import bgzf_bytes, cases
+
+    data = bgzf_bytes(cases()[case])
+    status, got = _card_inflate(data, cuda)
+    assert status == [0] * len(status)
+    assert got == gzip.decompress(data)
+
+
+def test_inflate_kernel_many_blocks_at_offsets(cuda):
+    """Several hundred blocks of every form in one launch, at a compressed
+    and an inflated base inside larger buffers."""
+    from bgzf_cases import bgzf_bytes, cases, walk
+
+    from pykmer_tpu_torch.ops import inflate
+
+    blocks = [b for _ in range(12) for bs in cases().values() for b in bs]
+    data = bgzf_bytes(blocks)
+    c, u = walk(data)
+    lead_c, lead_u = 4 * 1001, 777
+    padded = bytes(lead_c) + data + bytes(-len(data) % 4)
+    comp = torch.frombuffer(bytearray(padded), dtype=torch.uint8).to(cuda)
+    out = torch.zeros(lead_u + u[-1], dtype=torch.uint8, device=cuda)
+    status = torch.full((len(c) - 1,), -1, dtype=torch.int32, device=cuda)
+    c_dev = torch.tensor(c, device=cuda) + lead_c + 5
+    u_dev = torch.tensor(u, device=cuda) + lead_u + 9
+    inflate.inflate_bgzf(comp, c_dev, u_dev, out, status, c_base=5, u_base=9)
+    torch.cuda.synchronize()
+    assert status.cpu().tolist() == [0] * (len(c) - 1)
+    assert out[lead_u:].cpu().numpy().tobytes() == gzip.decompress(data)
+
+
+@pytest.mark.parametrize("what,code", [("crc", 3), ("isize", 2), ("stream", 1),
+                                       ("truncated", 1)])
+def test_inflate_kernel_reports_a_bad_block(cuda, what, code):
+    from bgzf_cases import bgzf_bytes, cases, corrupt
+
+    blocks = cases()["dynamic_level6"] * 3
+    status, _ = _card_inflate(corrupt(bgzf_bytes(blocks), what, 1), cuda)
+    assert status == [0, code, 0, 0]
+
+
+def test_inflate_kernel_refuses_what_it_does_not_take(cuda):
+    from pykmer_tpu_torch.ops import inflate
+
+    offs = torch.zeros(2, dtype=torch.int64, device=cuda)
+    out = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    status = torch.zeros(1, dtype=torch.int32, device=cuda)
+    comp = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="4-byte"):
+        inflate.inflate_bgzf(comp[1:], offs, offs, out, status)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        inflate.inflate_bgzf(comp[:62], offs, offs, out, status)
+    with pytest.raises(ValueError, match="entries"):
+        inflate.inflate_bgzf(comp, offs[:1], offs, out, status)
+    with pytest.raises(ValueError, match="on cpu"):
+        inflate.inflate_bgzf(comp, offs, offs, out, status.cpu())
+
+
+def _bgzf_input(path, device):
+    from pykmer_tpu_torch.host import segments
+
+    return segments.BgzfInput(segments.read_bgzf(path), card=device)
+
+
+@pytest.mark.parametrize("what", ["crc", "isize", "stream", "truncated"])
+def test_bgzf_card_input_raises_a_bad_block_through_wait_until(cuda, tmp_path, monkeypatch,
+                                                              what):
+    """A planted bad CRC, ISIZE, DEFLATE stream or a stream cut short, in the
+    third run of blocks: ``wait_until`` raises the host's error (its inflate
+    of the run again), never past the runs before it, and ``filled`` stops
+    before the bad block."""
+    from bgzf_cases import bgzf_bytes, cases, corrupt
+
+    from pykmer_tpu_torch.host import segments
+
+    monkeypatch.setattr(segments, "INFLATE_EXTENT", 3 * 65280)
+    blocks = cases()["dynamic_level6"] * 16
+    path = tmp_path / "bad.fa.gz"
+    path.write_bytes(corrupt(bgzf_bytes(blocks), what, 10))
+    stream = _bgzf_input(str(path), cuda)
+    try:
+        with pytest.raises(IOError) as err:
+            stream.wait_until(stream.size)
+        assert "the card's inflate" not in str(err.value)  # the host's own error
+        assert stream.filled() <= 10 * 65280
+    finally:
+        stream.release()
+
+
+def test_bgzf_card_input_names_a_block_the_host_inflates(cuda, tmp_path, monkeypatch):
+    """Where the card reports a block bad that the host's zlib inflates, the
+    input raises anyway, naming the block."""
+    from bgzf_cases import bgzf_bytes, cases
+
+    from pykmer_tpu_torch.ops import inflate
+
+    real = inflate.inflate_bgzf
+
+    def one_bad(comp, c_offs, u_offs, out, status, c_base=0, u_base=0):
+        real(comp, c_offs, u_offs, out, status, c_base=c_base, u_base=u_base)
+        status[-1] = inflate.BAD_CRC
+
+    monkeypatch.setattr(inflate, "inflate_bgzf", one_bad)
+    path = tmp_path / "ok.fa.gz"
+    path.write_bytes(bgzf_bytes(cases()["dynamic_level6"] * 4))
+    stream = _bgzf_input(str(path), cuda)
+    try:
+        with pytest.raises(IOError, match=r"block 4\) reports CRC mismatch, but the host"):
+            stream.wait_until(stream.size)
+        assert stream.filled() == 0
+    finally:
+        stream.release()
+
+
+def test_bgzf_card_input_spans_add_up(cuda, tmp_path, monkeypatch):
+    """A BGZF index of many runs on the card: every "bgzf inflate" span is
+    the card's (``card_blocks`` = ``blocks``), on the one card thread,
+    ``bytes`` add up to the inflated size and ``bytes_in`` to the file's;
+    the runs grow from ``INFLATE_EXTENT`` to an eighth of the file; the
+    `.kin` equals the plain file's, and one launch ran a run."""
+    from pykmer_tpu_torch.host import segments
+    from pykmer_tpu_torch.io import bgzf
+    from pykmer_tpu_torch.ops import inflate
+    from pykmer_tpu_torch.utils import profiling
+
+    fasta = _genome(str(tmp_path / "c.fa"), np.random.default_rng(12), n_records=30,
+                    length=40_000)
+    gz = bgzf.compress_file(fasta, str(tmp_path / "c2.fa.gz"), write_index=False)[0]
+    monkeypatch.setattr(segments, "INFLATE_EXTENT", 40_000)
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    cfg = IndexConfig(kmer_len=11, chunk_windows=1 << 16)
+    plain = _kin(create_fasta_index(fasta, "s", fasta, 11, config=cfg, verbose=False,
+                                    device=cuda))
+    inflate.LAUNCHES = 0
+    header = create_fasta_index(gz, "s", gz, 11, config=cfg, verbose=False, device=cuda)
+    assert _kin(header) == plain
+    runs = [s for s in profiling.FINISHED_RUNS[-1].spans if s.name == "bgzf inflate"]
+    src = segments.read_bgzf(gz)
+    want = segments.bgzf_runs(src.u_offs, 40_000, src.size // 8)
+    assert len(runs) == inflate.LAUNCHES == len(want) > 3
+    assert [s.counts["bytes"] for s in runs] == [src.u_offs[b1] - src.u_offs[b0]
+                                                 for b0, b1 in want]
+    assert all(s.counts["card_blocks"] == s.counts["blocks"] for s in runs)
+    assert {s.thread for s in runs} == {"bgzf-inflate_card"}
+    assert sum(s.counts["blocks"] for s in runs) == len(src.c_offs) - 1
+    assert sum(s.counts["bytes"] for s in runs) == os.path.getsize(fasta)
+    assert sum(s.counts["bytes_in"] for s in runs) == os.path.getsize(gz)
+    sizes = [s.counts["bytes"] for s in runs]
+    assert sizes[0] < 70_000 < src.size // 8 < max(sizes)
