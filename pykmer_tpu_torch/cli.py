@@ -193,6 +193,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 num_processes=args.num_processes, process_id=args.process_id,
                 checkpoint_every=args.checkpoint_every,
                 verify=not args.no_verify, verbose=not args.quiet, device=args.device,
+                bgzip=args.bgzip,
             )
             if header is None:  # a non-zero process of the job
                 return 0
@@ -210,6 +211,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 n_shards=args.shards, n_data=args.data_parallel,
                 checkpoint_every=args.checkpoint_every,
                 verify=not args.no_verify, verbose=not args.quiet, device=args.device,
+                bgzip=args.bgzip,
             )
         else:
             from .index import create_fasta_index
@@ -219,13 +221,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                 project, args.sample_name, args.input_file, args.kmer_len,
                 overwrite=not args.no_overwrite, config=cfg,
                 verify=not args.no_verify, verbose=not args.quiet, device=args.device,
+                bgzip=args.bgzip,
             )
-        if args.bgzip:
-            from .io.bgzf import bgzip_kin
-
-            bgz, gzi = bgzip_kin(header.index_file_root)
-            if not args.quiet:
-                print(f"wrote {bgz} + {gzi}")
+        if args.bgzip and not args.quiet:
+            bgz = header.index_file_root + ".bgz"
+            print(f"wrote {bgz} + {bgz}.gzi")
         return 0
 
     if args.command == "index-batch":

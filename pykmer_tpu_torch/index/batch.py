@@ -4,7 +4,9 @@ Port of ``pykmer_tpu/index/batch.py`` on the port's ``create_fasta_index``.
 One process indexes every input, so the kernels build and load once and the
 pooled host buffers are reused. Files whose ``.kin`` (or ``.kin.bgz``)
 already exists are skipped unless ``overwrite`` is set, so a batch resumes at
-file granularity; a failing input is reported and the batch goes on.
+file granularity; with ``bgzip`` a file is done once its ``.kin.bgz`` and
+``.gzi`` exist, which the index renames into place whole. A failing input is
+reported and the batch goes on.
 """
 
 from __future__ import annotations
@@ -32,9 +34,14 @@ class BatchResult:
     elapsed_s: float = 0.0
 
 
-def outputs_exist(input_file: str, kmer_len: int) -> bool:
+def outputs_exist(input_file: str, kmer_len: int, bgzip: bool = False) -> bool:
+    """Whether ``input_file``'s index is there: its `.kin` or `.kin.bgz`, or
+    with ``bgzip`` its `.kin.bgz` and `.gzi`."""
     root = kinfmt.kin_root_path(input_file, kmer_len)
-    return os.path.exists(root) or os.path.exists(root + "." + kinfmt.COMP_EXT)
+    bgz = root + "." + kinfmt.COMP_EXT
+    if bgzip:
+        return os.path.exists(bgz) and os.path.exists(bgz + ".gzi")
+    return os.path.exists(root) or os.path.exists(bgz)
 
 
 def sample_name(input_file: str) -> str:
@@ -64,7 +71,7 @@ def index_batch(
 
     todo = []
     for path in inputs:
-        if not overwrite and outputs_exist(path, kmer_len):
+        if not overwrite and outputs_exist(path, kmer_len, bgzip):
             result.skipped.append(path)
             if verbose:
                 print(f"skip {path} (index exists)")
@@ -76,7 +83,7 @@ def index_batch(
             header = create_fasta_index(
                 path, sample_name(path), path, kmer_len,
                 overwrite=True, config=config, verify=verify,
-                verbose=verbose, device=device,
+                verbose=verbose, device=device, bgzip=bgzip,
             )
         except Exception as exc:  # keep the batch going
             result.failed.append(f"{path}: {exc}")
@@ -84,12 +91,9 @@ def index_batch(
             continue
         result.indexed.append(path)
         result.total_bp += sum(c[1] for c in header.chromosomes)
-        if bgzip:
-            from ..io.bgzf import bgzip_kin
-
-            bgz, gzi = bgzip_kin(header.index_file_root)
-            if verbose:
-                print(f"wrote {bgz} + {gzi}")
+        if bgzip and verbose:
+            bgz = header.index_file_root + "." + kinfmt.COMP_EXT
+            print(f"wrote {bgz} + {bgz}.gzi")
 
     result.elapsed_s = time.monotonic() - t0
     if verbose:

@@ -27,8 +27,9 @@ sparse plane above ``PIECES_MIN_CELLS``, the arena-free pieces tail. The
 verify re-reads the written file by O_DIRECT and counts it
 (``index/verify.py``), starting as soon as the tail's writes have landed,
 beside the output hash, and compares its stats with the in-memory ones
-before the rename. The files are the JAX package's, byte for byte, in every
-mode.
+before the rename. With ``bgzip`` the finish then writes the `.kin` again
+as `.kin.bgz` + `.gzi` (``index/bgzip.py``). The files are the JAX
+package's, byte for byte, in every mode.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from ..ops import packing
 from ..ops.histogram import sort_codes_fast
 from ..ops.readback import output_array, stream_plane_to_out, stream_sparse_pieces
 from ..ops.sweep import accumulate_sorted
+from .bgzip import write_bgzip
 from .verify import FileVerifier
 
 PRINT_EVERY = 25_000_000  # progress cadence in bp (as the JAX package)
@@ -100,11 +102,14 @@ def create_fasta_index(
     verify: bool = True,
     verbose: bool = True,
     device: Union[str, torch.device] = "cuda",
+    bgzip: bool = False,
 ) -> KinHeader:
     """Build one `.kin` index on ``device`` ('cuda' or, for tests, 'cpu').
 
     ``input_file`` may be ``"-"`` (or ``None``) to read the FASTA from stdin;
-    outputs are then named after ``sample_name``. Returns the written header.
+    outputs are then named after ``sample_name``. With ``bgzip`` the `.kin`
+    is also written as `.kin.bgz` + `.gzi` (:func:`write_kin`). Returns the
+    written header.
     """
     device = resolve_device(device)
     from_stdin = input_file is None or input_file == "-"
@@ -223,7 +228,7 @@ def create_fasta_index(
         header.chromosomes = chromosomes
 
         tail = choose_tail(plane, kmer_len, config.readback, device, strategy, stages)
-        write_kin(header, plane, tail, stages, verify, input_checksum)
+        write_kin(header, plane, tail, stages, verify, input_checksum, bgzip)
 
     report_stages(f"{strategy} strategy", stages, device)
     if verbose:
@@ -288,10 +293,12 @@ def choose_tail(plane: torch.Tensor, kmer_len: int, readback: str, device: torch
 
 def write_kin(header: KinHeader, plane: Union[torch.Tensor, Sequence[torch.Tensor]],
               tail: str, stages: StageTimer, verify: bool,
-              input_checksum: Callable[[], str]) -> None:
+              input_checksum: Callable[[], str], bgzip: bool = False) -> None:
     """Write the folded ``plane`` as ``header``'s `.kin` through ``tail``
     (:func:`choose_tail`; a sharded run's list of local planes reads back
-    "raw"), stamp its `.kin.json` and rename it into place.
+    "raw"), stamp its `.kin.json` and rename it into place; with ``bgzip``,
+    then write the `.kin` as `.kin.bgz` + `.gzi` (the "bgzip" stage,
+    ``index/bgzip.write_bgzip``), each renamed into place after the `.kin`.
 
     The tail writes and hashes the file (``ops/readback``). With ``verify``
     an ``index/verify.FileVerifier``, which the tail's sink starts once the
@@ -334,6 +341,9 @@ def write_kin(header: KinHeader, plane: Union[torch.Tensor, Sequence[torch.Tenso
             verifier.close()  # no read outlives the index
         raise
     os.rename(tmp, header.index_file_root)
+    if bgzip:
+        with stages.stage("bgzip"):
+            write_bgzip(header.index_file_root, size)
 
 
 def report_stages(title: str, stages: StageTimer, device: torch.device) -> None:

@@ -62,6 +62,7 @@ from ..state import shards_from_numpy, shards_to_numpy
 from ..utils.bigmem import big_empty
 from ..utils.checksum import sha256_file
 from ..utils.profiling import StageTimer
+from .bgzip import write_bgzip
 from .indexer import PRINT_EVERY, report_stages
 from .sharded import SHARDED_CHUNK_WINDOWS
 
@@ -119,6 +120,7 @@ def create_fasta_index_multihost(
     verbose: bool = True,
     device: Union[str, torch.device] = "cuda",
     local_devices: Optional[Sequence[Union[str, torch.device]]] = None,
+    bgzip: bool = False,
 ) -> Optional[KinHeader]:
     """Build one `.kin` cooperatively across all processes of a
     ``torch.distributed`` job. Every process calls this with identical
@@ -132,8 +134,10 @@ def create_fasta_index_multihost(
     on ``make_mesh(n_shards_local, n_data_local, devices=local_devices,
     device=device)``: by default every visible card, or ``[cpu]`` for
     ``device="cpu"``; processes may share a card (``local_devices=
-    [cuda:0]``). With ``PYKMER_TPU_STAGE_TIMING`` set each process prints
-    its stage table on stderr."""
+    [cuda:0]``). With ``bgzip`` process 0 also writes the `.kin` as
+    `.kin.bgz` + `.gzi` (``index/bgzip.write_bgzip``) after its rename. With
+    ``PYKMER_TPU_STAGE_TIMING`` set each process prints its stage table on
+    stderr."""
     if input_file is None or input_file == "-":
         raise ValueError("stdin input ('-') is not supported for multi-host jobs")
     joined = initialize_distributed(coordinator_address, num_processes, process_id)
@@ -141,13 +145,14 @@ def create_fasta_index_multihost(
     try:
         # the other processes wait for process 0 alone where it stages a
         # `.gz` (the input read, inflated to a few times its size) and where
-        # it hashes the input and re-reads the written plane: those waits
-        # get a timeout that scales with the bytes
+        # it hashes the input, re-reads the written plane and, for
+        # ``bgzip``, deflates it: those waits get a timeout that scales with
+        # the bytes
         serial = multihost.timed_group(multihost.serial_timeout_s(
-            4**kmer_len + 8 * os.path.getsize(input_file)))
+            4**kmer_len * (1 + bgzip) + 8 * os.path.getsize(input_file)))
         return _build(project_name, sample_name, input_file, kmer_len, overwrite, config,
                       n_shards_local, n_data_local, capacity_factor, checkpoint_every,
-                      resume, verify, verbose, device, local_devices, serial)
+                      resume, verify, verbose, device, local_devices, serial, bgzip)
     finally:
         multihost.leave_group(serial)
         # a process that exits still in the group may abort in gloo's
@@ -158,7 +163,7 @@ def create_fasta_index_multihost(
 
 def _build(project_name, sample_name, input_file, kmer_len, overwrite, config,
            n_shards_local, n_data_local, capacity_factor, checkpoint_every, resume,
-           verify, verbose, device, local_devices, serial) -> Optional[KinHeader]:
+           verify, verbose, device, local_devices, serial, bgzip) -> Optional[KinHeader]:
     """The body of :func:`create_fasta_index_multihost`, in the job;
     ``serial`` is the group of the waits for process 0's serial work."""
     pid = multihost.process_index()
@@ -479,6 +484,9 @@ def _build(project_name, sample_name, input_file, kmer_len, overwrite, config,
         if verify and not np.array_equal(file_counts, counts):
             raise AssertionError("written .kin does not match computed stats")
         os.rename(tmp, header.index_file_root)
+        if bgzip:
+            with stages.stage("bgzip"):
+                write_bgzip(header.index_file_root, data_size)
         if verbose:
             print("done")
     multihost.barrier("pykmer_tpu_torch.index.multihost.done", group=serial)

@@ -60,9 +60,12 @@ def create_fasta_index_sharded(
     verify: bool = True,
     verbose: bool = True,
     device: Union[str, torch.device] = "cuda",
+    bgzip: bool = False,
 ) -> KinHeader:
     """Build one `.kin` index over ``mesh`` (default: ``make_mesh(n_shards,
-    n_data, device=device)``), resumably. Returns the written header.
+    n_data, device=device)``), resumably. Returns the written header. With
+    ``bgzip`` the `.kin` is also written as `.kin.bgz` + `.gzi` (the finish's,
+    ``index/indexer.write_kin``).
 
     With ``checkpoint_every`` N, the shards are saved after every Nth step
     but the last; a later run with ``resume`` continues from the last save
@@ -170,7 +173,7 @@ def create_fasta_index_sharded(
         header.num_kmers = num_kmers
         header.chromosomes = chromosomes
 
-        write_kin(header, planes[0], "raw", stages, verify, input_ck.result)
+        write_kin(header, planes[0], "raw", stages, verify, input_ck.result, bgzip)
     multihost.clear_shard_checkpoint(tmp)
     report_stages(f"sharded, mesh {mesh.shape[DATA_AXIS]}x{mesh.shape[SHARD_AXIS]}",
                   stages, mesh.first)

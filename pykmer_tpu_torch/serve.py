@@ -28,6 +28,7 @@ A; a service pays them once, and ``warmup`` pays them before the first job.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from typing import Optional, TextIO, Union
@@ -93,12 +94,13 @@ def _handle(req: dict, device: torch.device) -> dict:
             req["input"], req["sample"], req["input"], kmer_len,
             overwrite=bool(req.get("overwrite", True)), config=cfg,
             verify=bool(req.get("verify", True)), verbose=False, device=device,
+            bgzip=bool(req.get("bgzip")),
         )
         out = header.index_file_root
         if req.get("bgzip"):
-            from .io.bgzf import bgzip_kin
-
-            out, _ = bgzip_kin(out, keep=bool(req.get("keep_kin", True)))
+            if not req.get("keep_kin", True):
+                os.remove(out)
+            out += ".bgz"
         return {
             "ok": True,
             "output": str(out),

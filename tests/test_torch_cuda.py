@@ -1285,3 +1285,47 @@ def test_bgzf_card_input_spans_add_up(cuda, tmp_path, monkeypatch):
     assert sum(s.counts["bytes_in"] for s in runs) == os.path.getsize(gz)
     sizes = [s.counts["bytes"] for s in runs]
     assert sizes[0] < 70_000 < src.size // 8 < max(sizes)
+
+
+def test_bgzip_output_on_card(cuda, tmp_path, monkeypatch):
+    """A BGZF genome indexed at K=15 on the card with ``bgzip=True``: the
+    `.kin.bgz` inflates under the standard library to the 1 GiB `.kin`, its
+    `.kin.bgz` and `.gzi` are ``io/bgzf.bgzip_kin``'s bytes, and the spans of
+    the "bgzip" stage add up (deflate bytes 4^15, blocks ceil(4^15 / 65,280),
+    ``bytes_out`` + 28 and the writes the file's size)."""
+    import filecmp
+    import hashlib
+    import shutil
+
+    from pykmer_tpu_torch.io import bgzf
+    from pykmer_tpu_torch.utils import profiling
+
+    fasta = _genome(str(tmp_path / "z.fa"), np.random.default_rng(25), n_records=20,
+                    length=100_000)
+    gz = bgzf.compress_file(fasta, str(tmp_path / "z2.fa.gz"), write_index=False)[0]
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    header = create_fasta_index(gz, "z", gz, 15, verbose=False, device=cuda, bgzip=True)
+    root, size = header.index_file_root, 4 ** 15
+    spans = profiling.FINISHED_RUNS[-1].spans
+    deflates = [s for s in spans if s.name == "bgzf deflate"]
+    assert sum(s.counts["bytes"] for s in deflates) == size
+    assert sum(s.counts["blocks"] for s in deflates) == -(-size // 65280)
+    bgz_size = os.path.getsize(root + ".bgz")
+    assert sum(s.counts["bytes_out"] for s in deflates) + 28 == bgz_size
+    assert sum(s.counts["bytes"] for s in spans if s.name == "bgzf write") == bgz_size
+    assert sum(s.counts["bytes"] for s in spans if s.name == "kin read") == size
+    inflated, kin = hashlib.sha256(), hashlib.sha256()
+    with gzip.open(root + ".bgz", "rb") as fh, open(root, "rb") as raw:
+        while True:
+            piece = fh.read(64 << 20)
+            if not piece:
+                break
+            inflated.update(piece)
+            kin.update(raw.read(len(piece)))
+        assert raw.read(1) == b""
+    assert inflated.hexdigest() == kin.hexdigest()
+    copy = str(tmp_path / "copy.kin")
+    shutil.copy(root, copy)
+    bgzf.bgzip_kin(copy)
+    assert filecmp.cmp(root + ".bgz", copy + ".bgz", shallow=False)
+    assert filecmp.cmp(root + ".bgz.gzi", copy + ".bgz.gzi", shallow=False)
