@@ -80,6 +80,15 @@ Phases — each one passes or raises, and any failure exits non-zero:
    and statuses equal, its median time beside its byte bound (the
    compressed bytes read once and the inflated bytes written once, at
    3.35 TB/s) and zlib's on one host thread;
+4e. the genome at K=15 through ``create_fasta_index(..., bgzip=True)`` on
+   the card: the finish deflates the plane it holds on the card
+   (``ops/deflate.deflate_bgzf``, ``csrc/deflate.cu``), one launch and one
+   ``bgzf deflate`` span a run of ``index/bgzip.CARD_RUN_BLOCKS`` blocks,
+   every block in ``card_blocks`` and no ``kin read``; the `.kin` sha256
+   phase 4's, the `.kin.bgz` and `.gzi` ``io/bgzf.bgzip_kin``'s byte for
+   byte; then the kernels alone over the `.kin`, their median time beside
+   their byte bound (the file read once and the members written once, at
+   3.35 TB/s) and ``bgzip_kin``'s on the host;
 4b. the genome at K=15 in this process through ``create_fasta_index`` with
    ``IndexConfig(readback=...)`` raw, packed, 2bit, 3bit, sparse, raw again:
    each `.kin` sha256 phase 4's, each stage table logged, and whether the
@@ -168,7 +177,7 @@ Phases — each one passes or raises, and any failure exits non-zero:
    ``{"ok": true, "device": {...}}``.
 
 Phase 2b runs after phase 2, then 2c; 4c inside phase 4, after its readback
-modes; 4d after phase 4a and the gzip copy; phases 7-9 between phases 2c and 3
+modes; 4d after phase 4a and the gzip copy, then 4e; phases 7-9 between phases 2c and 3
 (7, with 10c) and after phase 5b (8, 9); 10a and 10d run after phase 9, 10b
 after phase 6b, 11 after 10b. The script exits non-zero, printing no result, where CUDA is unavailable or
 outside a checkout of the repository. It never imports jax. Scratch files go
@@ -1103,6 +1112,107 @@ def phase_bgzf(work, dev, genome, total_bp, want_sha):
     os.remove(gz)
     torch.cuda.empty_cache()
     return launches, (err, ms, zlib_ms, bound)
+
+
+def phase_deflate(work, dev, genome, want_sha):
+    """Phase 4e: the bgzip output on the card, on its main path: the genome
+    at K=15 through ``create_fasta_index(..., bgzip=True)``, whose finish
+    deflates runs of ``index/bgzip.CARD_RUN_BLOCKS`` blocks unfolded from
+    the plane on the card (``ops/deflate.deflate_bgzf``, the kernels of
+    ``csrc/deflate.cu``, on the thread "bgzf-deflate_card"): the `.kin`
+    sha256 phase 4's; one deflate launch a run and a ``bgzf deflate`` span
+    each, every block in ``card_blocks``; no ``kin read``; the `.kin.bgz`
+    and `.gzi` ``io/bgzf.bgzip_kin``'s (the native codec at level 6 on every
+    core), byte for byte. Then the kernels alone over the `.kin` on the
+    card, run by run: the members those of the file; their median ms beside
+    the byte bound (the file read once and the members written once, at
+    3.35 TB/s; the chain walks bind, not the bytes) and ``bgzip_kin``'s
+    wall. Returns (launches, (max abs err, ms, bgzip_kin ms, bound ms))."""
+    import numpy as np
+    import torch
+
+    from pykmer_tpu_torch import create_fasta_index
+    from pykmer_tpu_torch.config import IndexConfig
+    from pykmer_tpu_torch.index import bgzip
+    from pykmer_tpu_torch.io import bgzf
+    from pykmer_tpu_torch.ops import deflate
+    from pykmer_tpu_torch.utils import profiling
+
+    k = SLICE_K
+    link = os.path.join(work, "genome_bgzip.fa")
+    os.symlink(os.path.abspath(genome), link)
+    kin = link + f".{k:02d}.kin"
+    os.environ["PYKMER_TPU_STAGE_TIMING"] = "1"
+    table = io.StringIO()
+    deflate.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(table):
+            create_fasta_index(link, "s", link, k, verbose=False, device=dev, bgzip=True,
+                               config=IndexConfig(kmer_len=k))
+    finally:
+        os.environ.pop("PYKMER_TPU_STAGE_TIMING")
+    wall = time.perf_counter() - t0
+    launches = deflate.LAUNCHES
+    log(table.getvalue().rstrip())
+    spans = profiling.FINISHED_RUNS[-1].spans
+    deflates = [s for s in spans if s.name == "bgzf deflate"]
+    reads = [s for s in spans if s.name == "kin read"]
+    with open(kin + ".json") as fh:
+        meta = json.load(fh)
+    size = os.path.getsize(kin)
+    blocks = -(-size // deflate.BLOCK)
+    runs = -(-blocks // bgzip.CARD_RUN_BLOCKS)
+    log(f"index K={k} with bgzip on the card: {wall:.3f} s, {launches} deflate launches, "
+        f"{len(deflates)} bgzf deflate spans "
+        f"({sum(s.end - s.start for s in deflates) / 1e6:.1f} ms), "
+        f"{len(reads)} kin reads, .kin.bgz {os.path.getsize(kin + '.bgz')} bytes")
+    if meta["output_file_cheksum"] != want_sha:
+        raise AssertionError(f"K={k} with bgzip: .kin sha256 differs from phase 4's")
+    if launches != runs or len(deflates) != runs:
+        raise AssertionError(f"the card deflate launched {launches} times in {len(deflates)} "
+                             f"spans for {runs} runs of {blocks} blocks")
+    if (sum(s.counts.get("card_blocks", 0) for s in deflates) != blocks
+            or sum(s.counts["blocks"] for s in deflates) != blocks
+            or any(s.thread != "bgzf-deflate_card" for s in deflates) or reads):
+        raise AssertionError(f"the bgzf deflate spans count {[s.counts for s in deflates]} on "
+                             f"{sorted({s.thread for s in deflates})}; {len(reads)} kin reads")
+    card = {ext: open(kin + ext, "rb").read() for ext in (".bgz", ".bgz.gzi")}
+    for ext in (".bgz", ".bgz.gzi"):
+        os.remove(kin + ext)
+    t0 = time.perf_counter()
+    bgzf.bgzip_kin(kin)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    for ext, got in card.items():
+        with open(kin + ext, "rb") as fh:
+            if fh.read() != got:
+                raise AssertionError(f"the card's {ext} is not io/bgzf.bgzip_kin's")
+    want = np.frombuffer(card[".bgz"], dtype=np.uint8)[: -len(bgzf.BGZF_EOF)]
+
+    data = torch.from_numpy(np.fromfile(kin, dtype=np.uint8)).to(dev)
+    run = bgzip.CARD_RUN_BLOCKS * deflate.BLOCK
+
+    def kernels():
+        return [deflate.deflate_bgzf(data[a: a + run]) for a in range(0, size, run)]
+
+    got = np.concatenate([m[: int(s.sum())].cpu().numpy() for m, s in kernels()])
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"the kernels over the .kin: {got.shape[0]} bytes against the "
+                             f"file's {want.shape[0]}")
+    err = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+    ms = median_ms(kernels, 3)
+    bound = (size + got.shape[0]) / H100_SXM_BYTES_PER_S * 1e3
+    log(f"deflate of the K={k} .kin, {blocks} blocks in {runs} launches: the .kin.bgz and .gzi "
+        f"io/bgzf.bgzip_kin's, byte for byte ({got.shape[0]} bytes of members); the kernels "
+        f"alone median {ms:.1f} ms ({size / ms / 1e6:.3f} GB/s); bound {bound:.4f} ms ({size} "
+        f"bytes read once and {got.shape[0]} written once at {H100_SXM_BYTES_PER_S / 1e12} "
+        f"TB/s); at {bound / ms:.5f} of its bound; bgzip_kin on the host "
+        f"({bgzip.deflate_threads()} cores) {host_ms:.1f} ms")
+    del data, got, want
+    for path in (kin, kin + ".json", kin + ".bgz", kin + ".bgz.gzi", link):
+        os.remove(path)
+    torch.cuda.empty_cache()
+    return launches, (err, ms, host_ms, bound)
 
 
 def phase_k17_oracle(work, dev, fa):
@@ -2102,6 +2212,7 @@ def main():
         dec_times = phase_fasta(dev, genome, cw)
         gz = phase_k15_variants(work, dev, genome, total_bp, sha, cw)
         inf_launches, inf_times = phase_bgzf(work, dev, genome, total_bp, sha)
+        def_launches, def_times = phase_deflate(work, dev, genome, sha)
         phase_k15_modes(dev, genome, total_bp, sha, choice)
         log(format_table(step_times(dev, chunks[len(chunks) // 2], SLICE_K, cw)))
         del chunks
@@ -2227,6 +2338,24 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         # no PyTorch call inflates DEFLATE
+        "library_ms": None,
+    })
+    # launches: phase 4e's index with bgzip; times: the kernels over its .kin, run by run
+    err, ms, plain_ms, bound_ms = def_times
+    kernels.append({
+        "name": "deflate_kernel",
+        "route": "cuda",
+        "source": "pykmer_tpu_torch/csrc/deflate.cu",
+        # the JAX package deflates the .kin's BGZF blocks on the host, with zlib
+        "replaces": "pykmer_tpu/io/bgzf.py:35",
+        "launches": def_launches,
+        "max_abs_err": err,
+        "ms": ms,
+        # its plain version is the host's zlib: io/bgzf.bgzip_kin, every core
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        # no PyTorch call deflates
         "library_ms": None,
     })
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -298,7 +298,8 @@ def write_kin(header: KinHeader, plane: Union[torch.Tensor, Sequence[torch.Tenso
     (:func:`choose_tail`; a sharded run's list of local planes reads back
     "raw"), stamp its `.kin.json` and rename it into place; with ``bgzip``,
     then write the `.kin` as `.kin.bgz` + `.gzi` (the "bgzip" stage,
-    ``index/bgzip.write_bgzip``), each renamed into place after the `.kin`.
+    ``index/bgzip.write_bgzip``: on a CUDA plane the card deflates, from the
+    plane where it is one tensor), each renamed into place after the `.kin`.
 
     The tail writes and hashes the file (``ops/readback``). With ``verify``
     an ``index/verify.FileVerifier``, which the tail's sink starts once the
@@ -342,8 +343,16 @@ def write_kin(header: KinHeader, plane: Union[torch.Tensor, Sequence[torch.Tenso
         raise
     os.rename(tmp, header.index_file_root)
     if bgzip:
+        # a single plane is the whole folded plane, which the card deflate
+        # unfolds again; a sharded run's local planes are read back from the
+        # file. write_bgzip picks the route from the device; a CPU plane
+        # calls it with the two arguments the host route has always taken
+        # (kbench's fault tests stand in for it with that signature)
+        whole = plane if isinstance(plane, torch.Tensor) else None
+        device = (plane if whole is not None else plane[0]).device
+        card = () if device.type == "cpu" else (device, whole)
         with stages.stage("bgzip"):
-            write_bgzip(header.index_file_root, size)
+            write_bgzip(header.index_file_root, size, *card)
 
 
 def report_stages(title: str, stages: StageTimer, device: torch.device) -> None:

@@ -486,7 +486,7 @@ def _build(project_name, sample_name, input_file, kmer_len, overwrite, config,
         os.rename(tmp, header.index_file_root)
         if bgzip:
             with stages.stage("bgzip"):
-                write_bgzip(header.index_file_root, data_size)
+                write_bgzip(header.index_file_root, data_size, local_mesh.first)
         if verbose:
             print("done")
     multihost.barrier("pykmer_tpu_torch.index.multihost.done", group=serial)

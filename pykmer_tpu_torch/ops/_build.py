@@ -3,8 +3,9 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process a
 source, all started together, and links the objects into one shared library
 with a plain C interface, under ``build/kernels/`` at the root of the
-checkout. The file name carries a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree loads the cached library. Only the kernel
+checkout. The file name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged tree
+loads the cached library. Only the kernel
 wrappers import this module, and only when a CUDA tensor reaches them, so the
 package imports and its CPU tests run without ``nvcc``.
 """
@@ -58,6 +59,10 @@ def _sources():
     return srcs
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+
+
 def _digest(paths) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths:
@@ -97,6 +102,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         # (comp, bytes, c_offs, u_offs, n_blocks, c_base, u_base, out, bytes,
         #  status, stream)
         "pykmer_inflate_bgzf": [ptr, i64, ptr, ptr, i64, i64, i64, ptr, i64, ptr, ptr],
+        # (data, bytes, records, syms, slots, sizes, out, stream)
+        "pykmer_deflate_bgzf": [ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr],
     }
     for name, argtypes in untyped.items():
         fn = getattr(lib, name)
@@ -141,7 +148,7 @@ def load() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         srcs = _sources()
-        so = os.path.join(BUILD_DIR, f"libpykmer_kernels_{_digest(srcs)}.so")
+        so = os.path.join(BUILD_DIR, f"libpykmer_kernels_{_digest(srcs + _headers())}.so")
         if os.path.exists(so):
             BUILD_LOG = f"loaded cached {so}"
         else:

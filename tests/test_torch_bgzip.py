@@ -212,3 +212,116 @@ def test_bgzip_without_native_library_writes_the_same_bytes(tmp_path, monkeypatc
 def test_deflate_threads_follow_the_affinity(monkeypatch, cpus, threads):
     monkeypatch.setattr(os, "sched_getaffinity", lambda pid: cpus)
     assert tbgzip.deflate_threads() == threads
+
+
+@pytest.fixture
+def card_route_on_cpu(monkeypatch):
+    """``write_bgzip``'s card route run on the CPU: no card to select, no
+    page-locked buffer to lease, and ``ops/deflate.deflate_bgzf`` of a CPU
+    tensor (the host's zlib) standing in for the kernels."""
+    import contextlib
+
+    monkeypatch.setattr(tbgzip.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(tbgzip.PINNED_OUT, "try_lease", lambda size: None)
+    monkeypatch.setattr(tbgzip, "CARD_RUN_BLOCKS", 2)
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+
+
+def _folded_kin(tmp_path, k=9, seed=46):
+    """A random folded plane of K=``k`` and its `.kin` (``ops/unfold``'s
+    file bytes), written to ``tmp_path``."""
+    import torch
+
+    from pykmer_tpu_torch.ops import unfold
+
+    rng = np.random.default_rng(seed)
+    half = 4 ** k // 2
+    plane = torch.from_numpy((rng.integers(0, 5, half) * (rng.random(half) < 0.3))
+                             .astype(np.uint8))
+    path = str(tmp_path / "p.kin")
+    unfold.unfold_file_plain(plane, 0, k, 0, 4 ** k).numpy().tofile(path)
+    return plane, path
+
+
+def test_card_route_deflates_the_plane(tmp_path, card_route_on_cpu):
+    """Given the plane, the card route unfolds each run of it (no "kin
+    read"), deflates it on the thread "bgzf-deflate_card" (each span's
+    ``card_blocks`` its ``blocks``) and writes ``io/bgzf.bgzip_kin``'s
+    bytes."""
+    import torch
+
+    from pykmer_tpu_torch.utils.profiling import StageTimer
+
+    plane, path = _folded_kin(tmp_path)
+    size = 4 ** 9
+    timer = StageTimer()
+    with timer.stage("bgzip"):
+        tbgzip.write_bgzip(path, size, torch.device("cuda"), plane)
+    deflates = [s for s in timer.spans if s.name == "bgzf deflate"]
+    blocks = -(-size // 65280)
+    assert len(deflates) == -(-blocks // 2)
+    assert all(s.thread == "bgzf-deflate_card" for s in deflates)
+    assert [s.counts["card_blocks"] for s in deflates] == [s.counts["blocks"] for s in deflates]
+    assert sum(s.counts["blocks"] for s in deflates) == blocks
+    assert sum(s.counts["bytes"] for s in deflates) == size
+    assert sum(s.counts["bytes_out"] for s in deflates) + 28 == os.path.getsize(path + ".bgz")
+    assert not [s for s in timer.spans if s.name == "kin read"]
+    shutil.copy(path, str(tmp_path / "copy.kin"))
+    bgzf.bgzip_kin(str(tmp_path / "copy.kin"))
+    for ext in (".bgz", ".bgz.gzi"):
+        assert _read(path + ext) == _read(str(tmp_path / "copy.kin") + ext)
+
+
+def test_card_route_failure_leaves_no_output(tmp_path, card_route_on_cpu, monkeypatch):
+    """A run that fails on the card thread raises in ``write_bgzip``, which
+    leaves neither file nor a temporary, and its thread has ended."""
+    import threading
+
+    import torch
+
+    from pykmer_tpu_torch.ops import deflate
+
+    plane, path = _folded_kin(tmp_path)
+    real, calls = deflate.deflate_bgzf, []
+
+    def fail_second(data):
+        calls.append(data.shape[0])
+        if len(calls) == 2:
+            raise RuntimeError("deflate launch failed: cudaError_t 2")
+        return real(data)
+
+    monkeypatch.setattr(deflate, "deflate_bgzf", fail_second)
+    with pytest.raises(RuntimeError, match="cudaError_t 2"):
+        tbgzip.write_bgzip(path, 4 ** 9, torch.device("cuda"), plane)
+    assert sorted(os.listdir(tmp_path)) == ["p.kin"]
+    assert not [t for t in threading.enumerate() if t.name == "bgzf-deflate_card"]
+
+
+@pytest.mark.parametrize("readback", ["raw", "packed", "sparse", "pieces"])
+def test_no_tail_alters_the_plane(tmp_path, monkeypatch, readback):
+    """The card route deflates the plane after the tail has written the
+    `.kin` from it, so no tail may alter it: each (sparse and the pieces
+    tail with their thresholds lowered) leaves the plane as it found it."""
+    import torch
+
+    from pykmer_tpu_torch.index import indexer
+    from pykmer_tpu_torch.ops import packing
+
+    monkeypatch.setattr(packing, "SPARSE_MIN_CELLS", 1)
+    monkeypatch.setattr(packing, "SPARSE_SEG_CELLS", 1 << 13)
+    if readback == "pieces":
+        monkeypatch.setattr(indexer, "PIECES_MIN_CELLS", 0)
+    real, seen = indexer.write_kin, []
+
+    def checked(header, plane, tail, *rest):
+        before = plane.clone()
+        real(header, plane, tail, *rest)
+        seen.append(tail)
+        assert torch.equal(plane, before)
+
+    monkeypatch.setattr(indexer, "write_kin", checked)
+    fasta = _fasta(tmp_path, "n.fa", 47, lengths=(30_000, 9000))
+    mode = "sparse" if readback == "pieces" else readback
+    create_fasta_index(fasta, "n", fasta, 11, verbose=False, device="cpu",
+                       config=IndexConfig(kmer_len=11, chunk_windows=4096, readback=mode))
+    assert seen == [readback]

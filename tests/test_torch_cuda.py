@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import deflate_cases
 from fasta_cases import CASES, case_bytes
 
 from pykmer_tpu_torch.config import IndexConfig
@@ -1292,18 +1293,22 @@ def test_bgzip_output_on_card(cuda, tmp_path, monkeypatch):
     `.kin.bgz` inflates under the standard library to the 1 GiB `.kin`, its
     `.kin.bgz` and `.gzi` are ``io/bgzf.bgzip_kin``'s bytes, and the spans of
     the "bgzip" stage add up (deflate bytes 4^15, blocks ceil(4^15 / 65,280),
-    ``bytes_out`` + 28 and the writes the file's size)."""
+    ``bytes_out`` + 28 and the writes the file's size); the card deflated
+    every block (``card_blocks``), one launch a run of 1,024 blocks, from the
+    plane, with no "kin read"."""
     import filecmp
     import hashlib
     import shutil
 
     from pykmer_tpu_torch.io import bgzf
+    from pykmer_tpu_torch.ops import deflate
     from pykmer_tpu_torch.utils import profiling
 
     fasta = _genome(str(tmp_path / "z.fa"), np.random.default_rng(25), n_records=20,
                     length=100_000)
     gz = bgzf.compress_file(fasta, str(tmp_path / "z2.fa.gz"), write_index=False)[0]
     monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    launches = deflate.LAUNCHES
     header = create_fasta_index(gz, "z", gz, 15, verbose=False, device=cuda, bgzip=True)
     root, size = header.index_file_root, 4 ** 15
     spans = profiling.FINISHED_RUNS[-1].spans
@@ -1313,7 +1318,11 @@ def test_bgzip_output_on_card(cuda, tmp_path, monkeypatch):
     bgz_size = os.path.getsize(root + ".bgz")
     assert sum(s.counts["bytes_out"] for s in deflates) + 28 == bgz_size
     assert sum(s.counts["bytes"] for s in spans if s.name == "bgzf write") == bgz_size
-    assert sum(s.counts["bytes"] for s in spans if s.name == "kin read") == size
+    # the card deflated every block, from the plane: nothing was read back
+    assert sum(s.counts["card_blocks"] for s in deflates) == -(-size // 65280)
+    assert all(s.thread == "bgzf-deflate_card" for s in deflates)
+    assert not [s for s in spans if s.name == "kin read"]
+    assert deflate.LAUNCHES - launches == len(deflates) == -(-size // (65280 * 1024))
     inflated, kin = hashlib.sha256(), hashlib.sha256()
     with gzip.open(root + ".bgz", "rb") as fh, open(root, "rb") as raw:
         while True:
@@ -1329,3 +1338,138 @@ def test_bgzip_output_on_card(cuda, tmp_path, monkeypatch):
     bgzf.bgzip_kin(copy)
     assert filecmp.cmp(root + ".bgz", copy + ".bgz", shallow=False)
     assert filecmp.cmp(root + ".bgz.gzi", copy + ".bgz.gzi", shallow=False)
+
+
+def _card_members(data: bytes, device):
+    """``ops/deflate.deflate_bgzf`` of ``data`` on the card: each block's
+    member."""
+    from pykmer_tpu_torch.ops import deflate
+
+    members, sizes = deflate.deflate_bgzf(
+        torch.from_numpy(np.frombuffer(data, dtype=np.uint8).copy()).to(device))
+    sizes = sizes.cpu().tolist()
+    packed = members[: sum(sizes)].cpu().numpy().tobytes()
+    at = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+    return [packed[a:b] for a, b in zip(at[:-1], at[1:])]
+
+
+def _zlib_members(data: bytes):
+    from pykmer_tpu_torch.ops import deflate
+
+    return [deflate.member(data[a: a + 65280], deflate.zlib_raw(data[a: a + 65280]))
+            for a in range(0, len(data), 65280)]
+
+
+@pytest.mark.parametrize("name", deflate_cases.NAMES)
+def test_deflate_kernel_equals_zlib(cuda, name):
+    """Each case of ``tests/deflate_cases.py`` as one block: the member's
+    bytes are zlib level 6's (the empty payload has no block)."""
+    from pykmer_tpu_torch.ops import deflate
+
+    data = deflate_cases.case(name)
+    before = deflate.LAUNCHES
+    got = _card_members(data, cuda)
+    assert got == _zlib_members(data)
+    assert deflate.LAUNCHES == before + (len(data) > 0)
+
+
+def test_deflate_kernel_over_many_blocks(cuda):
+    """Whole-block cases side by side with a ragged last block, in one
+    launch."""
+    whole = [n for n in deflate_cases.NAMES if len(deflate_cases.case(n)) == 65280]
+    data = b"".join(deflate_cases.case(n) for n in whole) + deflate_cases.case("ends-in-copy-258")
+    assert len(whole) >= 6
+    assert _card_members(data, cuda) == _zlib_members(data)
+
+
+def test_deflate_kernel_on_a_k15_plane(cuda, tmp_path):
+    """2,000 blocks of a K=15 `.kin` (its first, middle and last, with the
+    ragged end) against the standard library's zlib, member by member."""
+    fasta = _genome(str(tmp_path / "d.fa"), np.random.default_rng(26), n_records=20,
+                    length=100_000)
+    header = create_fasta_index(fasta, "d", fasta, 15, verbose=False, device=cuda)
+    kin = np.fromfile(header.index_file_root, dtype=np.uint8)
+    blocks = -(-kin.shape[0] // 65280)
+    mid = blocks // 2 - 350
+    for b0, b1 in ((0, 700), (mid, mid + 700), (blocks - 600, blocks)):
+        data = kin[b0 * 65280: b1 * 65280].tobytes()
+        assert _card_members(data, cuda) == _zlib_members(data)
+
+
+def test_deflate_kernel_refuses_what_it_does_not_take(cuda):
+    from pykmer_tpu_torch.ops import deflate
+
+    for bad in (torch.zeros(8, dtype=torch.int32, device=cuda),
+                torch.zeros(16, dtype=torch.uint8, device=cuda)[::2]):
+        with pytest.raises(ValueError, match="contiguous 1-D uint8"):
+            deflate.deflate_bgzf(bad)
+
+
+def _bgzip_index(index, fasta, name, **kw):
+    """``index`` ``fasta`` at K=13 with ``bgzip=True``: its `.kin.bgz`, `.gzi`
+    and `.kin` bytes, and the spans of the run."""
+    from pykmer_tpu_torch.utils import profiling
+
+    header = index(fasta, name, fasta, 13, verbose=False, bgzip=True, **kw)
+    root = header.index_file_root
+    out = []
+    for path in (root + ".bgz", root + ".bgz.gzi", root):
+        with open(path, "rb") as fh:
+            out.append(fh.read())
+    return out, profiling.FINISHED_RUNS[-1].spans
+
+
+def test_sharded_bgzip_reads_back_on_card(cuda, tmp_path, monkeypatch):
+    """A sharded ``bgzip=True`` index over two logical shards of the card
+    writes the single card's `.kin.bgz` and `.gzi`, deflated on the card from
+    the file read back."""
+    from pykmer_tpu_torch.index import create_fasta_index_sharded
+    from pykmer_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    fasta = _genome(str(tmp_path / "s.fa"), np.random.default_rng(27), n_records=8,
+                    length=60_000)
+    single, single_spans = _bgzip_index(create_fasta_index, fasta, "a", device=cuda)
+    sharded, spans = _bgzip_index(create_fasta_index_sharded, fasta, "b",
+                                  mesh=make_mesh(2, 1, devices=[cuda, cuda]))
+    assert sharded == single
+    size = 4 ** 13
+    deflates = [s for s in spans if s.name == "bgzf deflate"]
+    assert sum(s.counts["card_blocks"] for s in deflates) == -(-size // 65280)
+    assert sum(s.counts["bytes"] for s in spans if s.name == "kin read") == size
+    assert not [s for s in single_spans if s.name == "kin read"]
+
+
+@pytest.mark.parametrize("readback", ["raw", "packed", "sparse", "pieces"])
+def test_bgzip_from_the_plane_after_each_tail(cuda, tmp_path, monkeypatch, readback):
+    """The card deflates the plane the tail has just written: after every
+    tail, sparse and pieces with their thresholds lowered, the `.kin.bgz`
+    and `.gzi` are those ``io/bgzf.bgzip_kin`` makes from the `.kin`."""
+    import shutil
+
+    from pykmer_tpu_torch.config import IndexConfig
+    from pykmer_tpu_torch.index import indexer
+    from pykmer_tpu_torch.io import bgzf
+    from pykmer_tpu_torch.ops import packing
+
+    if readback in ("sparse", "pieces"):
+        monkeypatch.setattr(packing, "SPARSE_MIN_CELLS", 1)
+        monkeypatch.setattr(packing, "SPARSE_SEG_CELLS", 1 << 16)
+    if readback == "pieces":
+        monkeypatch.setattr(indexer, "PIECES_MIN_CELLS", 0)
+    monkeypatch.setenv("PYKMER_TPU_STAGE_TIMING", "1")
+    fasta = _genome(str(tmp_path / "t.fa"), np.random.default_rng(28), n_records=8,
+                    length=60_000)
+    mode = "sparse" if readback == "pieces" else readback
+    tails = dict(indexer.TAILS)
+    (bgz, gzi, kin), _ = _bgzip_index(create_fasta_index, fasta, "t", device=cuda,
+                                      config=IndexConfig(kmer_len=13, readback=mode))
+    assert indexer.TAILS[readback] == tails.get(readback, 0) + 1
+    copy = str(tmp_path / "copy.kin")
+    with open(copy, "wb") as fh:
+        fh.write(kin)
+    bgzf.bgzip_kin(copy)
+    with open(copy + ".bgz", "rb") as fh:
+        assert bgz == fh.read()
+    with open(copy + ".bgz.gzi", "rb") as fh:
+        assert gzi == fh.read()
